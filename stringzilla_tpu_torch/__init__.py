@@ -1,0 +1,44 @@
+"""stringzilla_tpu_torch — the PyTorch/CUDA port of stringzilla_tpu.
+
+Batch string engines in PyTorch, with every kernel on the engines' path
+hand-written in CUDA C++ for NVIDIA Hopper (``csrc/``, built with ``nvcc``
+for ``sm_90a`` on first use) and a plain PyTorch version beside each kernel
+for the CPU. Imports torch and numpy, never jax.
+
+Layout mirrors ``stringzilla_tpu`` so each module has a counterpart:
+
+* ``stringzilla_tpu_torch.ops``    — kernels' wrappers and plain versions,
+  tapes and on-device packing
+* ``stringzilla_tpu_torch.models`` — engine classes and ``DeviceScope``
+* ``stringzilla_tpu_torch.utils``  — device resolution, the CUDA kernel build
+
+Ported so far: ``LevenshteinDistances`` with unit costs over byte strings
+of up to 4096 bytes.
+"""
+
+from .models.device_scope import DeviceScope
+from .models.similarities import (
+    LevenshteinDistances,
+    LevenshteinDistancesUTF8,
+    NeedlemanWunsch,
+    SmithWaterman,
+)
+from .ops.tape import Tape
+from .utils import platform
+
+__version__ = "0.1.0"
+
+
+def __capabilities__():
+    return platform.capabilities()
+
+
+__all__ = [
+    "DeviceScope",
+    "LevenshteinDistances",
+    "LevenshteinDistancesUTF8",
+    "NeedlemanWunsch",
+    "SmithWaterman",
+    "Tape",
+    "__capabilities__",
+]

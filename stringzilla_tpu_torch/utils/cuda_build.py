@@ -1,0 +1,98 @@
+"""Builds the Hopper kernels in ``csrc/`` and loads them with ctypes.
+
+The pattern follows the JAX package's host runtime (``utils/native.py``):
+the shared library is keyed by a hash of its sources and flags (mtime is
+meaningless after a checkout), written under a temporary name and renamed
+into place atomically, then loaded with ``ctypes``. The sources have a
+plain C interface and include no PyTorch header, so ``nvcc`` compiles them
+in seconds rather than the minutes a ``torch/extension.h`` build takes.
+
+The library lands in ``build/stringzilla_tpu_torch/`` beside the package
+(ignored by git) on first use, so a fresh checkout builds it by itself.
+Nothing here runs at import time. A failed compile raises with ``nvcc``'s
+own output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["load", "build_log"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "stringzilla_tpu_torch")
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_log_path: str | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "CUDA toolkit is needed to build csrc/*.cu")
+    return path
+
+
+def _build() -> str:
+    sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in sources + headers:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    so = os.path.join(_BUILD_DIR, f"libsz_kernels-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *sources],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    with open(so[:-3] + ".log", "w") as f:  # ptxas register/spill report
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, so)  # atomic when several processes build at once
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, _log_path
+    with _lock:
+        if _lib is None:
+            so = _build()
+            lib = ctypes.CDLL(so)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.sz_myers.argtypes = [p, i, p, i, p, p, i, i, p, p]
+            lib.sz_myers.restype = i
+            lib.sz_cuda_error_string.argtypes = [i]
+            lib.sz_cuda_error_string.restype = ctypes.c_char_p
+            _lib, _log_path = lib, so[:-3] + ".log"
+        return _lib
+
+
+def build_log() -> str:
+    """``nvcc``'s report from building the loaded library (``-Xptxas -v``:
+    registers, shared memory and spills per kernel); empty before ``load``."""
+    if _log_path is None or not os.path.exists(_log_path):
+        return ""
+    with open(_log_path) as f:
+        return f.read()
