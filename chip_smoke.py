@@ -13,19 +13,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``myers_reference`` on the same device tensors, exact int32 equality, at
    both kernel tiers (1-4 words per thread; 5-64 words per warp), word
    boundary lengths, empty strings and out-of-range char values.
-4. Main path: ``LevenshteinDistances()`` through the default scope on the
-   ``bench.py`` workload (128 x 32768 lowercase lines, lengths N(100, 12.5)
-   clipped to [8, 128], seed ``STRINGWARS_SEED`` = 42) and on long queries
-   (16 x 2048, lengths uniform in 300-4096). Launch counts are reset just
-   before these two calls and read just after. Each result must equal the
-   plain version on the same packed device inputs and Wagner-Fischer on
-   sampled pairs. Then times the engine (host pull included), the kernel
-   alone and the plain version, in GCUPS (sum of len_q * len_c per second).
+3b. The same for this slice's kernels: ``ops.similarity_dp.similarity``
+   against ``similarity_reference`` in all 16 configurations (min/max,
+   global/local, linear/affine, uniform/class costs) at rows 8, 40, 136,
+   1032 and 4104, with query lengths 0 and rows - 1, candidate lengths 0, 1
+   and 31-33 around the 32-row strip, class ids >= 32, and negative and
+   wrong-sign costs; ``ops.memory.lookup_transform`` against
+   ``lut[x.long()]`` at lengths 0, 1, 15, 16, 17 and 2**24 + 3, and on a
+   buffer that is not 16-byte aligned. Exact equality.
+4. Main path, unit costs: ``LevenshteinDistances()`` through the default
+   scope on the ``bench.py`` workload (128 x 32768 lowercase lines, lengths
+   N(100, 12.5) clipped to [8, 128], seed ``STRINGWARS_SEED`` = 42) and on
+   long queries (16 x 2048, lengths uniform in 300-4096). Launch counts are
+   reset just before these two calls and read just after. Each result must
+   equal the plain version on the same packed device inputs and
+   Wagner-Fischer on sampled pairs. Then times the engine (host pull
+   included), the kernel alone and the plain version, in GCUPS (sum of
+   len_q * len_c per second).
+4b. Main path, column DP: ``NeedlemanWunschScores`` and
+   ``SmithWatermanScores`` on proteins (the shape of
+   ``benches/bench_all.py::bench_nw_proteins``: 16 x 512 sequences of
+   20 residues mapped to classes 0-19, lengths N(1000, 100) clipped to
+   [100, 1024], its symmetric random 32x32 table), with linear gaps -5/-5
+   and affine gaps -10/-1, then ``LevenshteinDistances(match=0,
+   mismatch=2, open=3, extend=1)`` on 64 x 4096 ``bench.py`` lines. Counts
+   are reset before these five calls and read after; both the column-DP and
+   the byte-LUT kernel must have launched. Each result must equal the plain
+   version on the same packed device inputs and a numpy Gotoh DP on sampled
+   pairs. Then the same timings, and the LUT kernel's at the protein
+   candidates' blob size beside one ``lut[x.long()]`` call.
 
-Prints one JSON line of per-kernel results, then, last, the device line
+Phases 4 and 4b also profile one engine call of each workload with
+``torch.profiler`` and print the device's idle share of it.
+
+Prints the card's name and power limit and one JSON line of per-kernel
+results (time, plain time, launches on the main path, bound by the card's
+peak rates, PyTorch library time where one call computes the same), then,
+last, the device line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -35,6 +63,34 @@ import time
 import numpy as np
 
 SEED = int(os.environ.get("STRINGWARS_SEED", "42"))
+
+# Workload sizes (queries, candidates) of the main-path phases.
+HEADLINE = (128, 32768)
+LONG = (16, 2048)
+PROTEINS = (16, 512)
+LINES = (64, 4096)
+
+# The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
+# multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused
+# pair, so a quarter of it.
+INT32_OPS_PER_S = 67e12 / 4
+HBM_BYTES_PER_S = 3.35e12
+# int32 ops the kernels' recurrences need: Myers, 17 64-bit ops per 64-bit
+# word per candidate char, two int32 ops each; the column DP, per cell,
+# 2 adds + 2 min/max + the substitution (linear), 5 adds + 4 min/max + the
+# substitution (affine), plus the clamp and the running best when local.
+MYERS_OPS_PER_WORD_STEP = 34
+
+
+def _dp_ops_per_cell(cfg) -> int:
+    return (10 if cfg.is_affine else 5) + (2 if cfg.is_local else 0)
+
+
+def _bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of operations over the int32 peak
+    and bytes over the memory rate."""
+    ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def _check(cond, what):
@@ -56,6 +112,64 @@ def _wagner_fischer(a: bytes, b: bytes) -> int:
         x[1:] = np.minimum(prev[1:] + 1, prev[:-1] + (b != a[i - 1]))
         prev = np.minimum.accumulate(x - j) + j
     return int(prev[-1])
+
+
+def _gotoh(a, b, sub, gap, extend, maximize, local) -> int:
+    """Row-at-a-time alignment score in numpy, independent of the port:
+    linear gaps when ``extend`` is None, else Gotoh's three matrices (a run
+    of k gaps costs gap + extend * (k - 1), gap matrices padded at the
+    border by gap + extend, the semantics of ``tests/oracles.py``).
+    ``sub(i)`` gives the costs of query char i against every candidate
+    char. The in-row chains are solved as running min/max, as in
+    ``_wagner_fischer``."""
+    opt = np.maximum if maximize else np.minimum
+    acc = opt.accumulate
+    n, m = len(a), len(b)
+    j = np.arange(m + 1, dtype=np.int64)
+
+    def bound(k):
+        if local or k == 0:
+            return 0
+        return gap * k if extend is None else gap + extend * (k - 1)
+
+    prev = np.array([bound(k) for k in j], np.int64)
+    best = 0
+    if extend is None:
+        for i in range(1, n + 1):
+            x = np.empty_like(prev)
+            x[0] = bound(i)
+            x[1:] = opt(prev[1:] + gap, prev[:-1] + sub(i))
+            if local:
+                x[1:] = opt(x[1:], 0)
+            prev = acc(x - gap * j) + gap * j
+            if local and m:
+                best = opt(best, acc(prev[1:])[-1])
+        return int(best if local else prev[m])
+    chain = max(gap, extend) if maximize else min(gap, extend)
+    gbound = lambda k: bound(k) + gap + extend
+    vert = prev + gap + extend  # gaps along the query, border included
+    jj = j[1:]
+    for i in range(1, n + 1):
+        vert = opt(prev + gap, vert + extend)
+        s = prev[:-1] + sub(i)
+        if local:
+            s = opt(s, 0)
+        y = opt(vert[1:], s)
+        # gaps along the candidate: I[1] from the border, then the chain
+        # I[k] = opt(y[k-1] + gap, I[k-1] + opt(gap, extend))
+        b_ = np.empty(m, np.int64)
+        if m:
+            b_[0] = opt(bound(i) + gap, gbound(i) + extend)
+            b_[1:] = y[:-1] + gap
+        horiz = acc(b_ - chain * jj) + chain * jj
+        cur = np.empty_like(prev)
+        cur[0] = bound(i)
+        cur[1:] = opt(y, horiz)
+        vert[0] = gbound(i)
+        prev = cur
+        if local and m:
+            best = opt(best, acc(cur[1:])[-1])
+    return int(best if local else prev[m])
 
 
 def _block(rng, q_lens, c_lens, rows, cand_len, lo, hi):
@@ -94,42 +208,36 @@ def _time_ms(fn, iters, sync):
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def _profile(name, fn, sync):
+    """Prints the device's idle share of one call of ``fn`` under
+    ``torch.profiler``: device time is the sum of every kernel's and copy's
+    own time, wall time the host clock to the end of a synchronise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = sum(getattr(e, "self_device_time_total", 0)
+                    for e in prof.key_averages()) / 1e3
+    print(f"[profile] {name}: one engine call under torch.profiler: device "
+          f"{device_ms:.3f} ms of {wall_ms:.3f} ms wall, idle "
+          f"{100 * (1 - device_ms / wall_ms):.1f}%")
+
+
+def _reset(*counters):
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+def _check_myers_kernel(dev, sync, max_err):
+    """Phase 3: both Myers tiers against their plain version."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU",
-              file=sys.stderr)
-        return 1
-    from stringzilla_tpu_torch import LevenshteinDistances, Tape
-    from stringzilla_tpu_torch.ops import myers as myers_mod
     from stringzilla_tpu_torch.ops.myers import myers, myers_reference, words_of
-    from stringzilla_tpu_torch.ops.pack_device import device_tape, pack_chars
-    from stringzilla_tpu_torch.utils import cuda_build
-    from tests.oracles import levenshtein
 
-    dev = torch.device("cuda", 0)
-    sync = torch.cuda.synchronize
-
-    # -- phase 1: device ---------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)
-    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"{torch.cuda.get_device_name(0)} capability "
-          f"{torch.cuda.get_device_capability(0)}")
-
-    # -- phase 2: build ----------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_build.load()
-    print(f"[build] csrc/*.cu -> sm_90a in {time.perf_counter() - t0:.3f} s")
-    for line in cuda_build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}")
-
-    # -- phase 3: kernel vs plain version ------------------------------------
     rng = np.random.default_rng(SEED)
     cases = [  # name, query lengths, candidate lengths, rows, cand_len, chars
         ("w1 abcd", rng.integers(0, 65, 6), rng.integers(0, 101, 300), 64, 100, (97, 101)),
@@ -145,7 +253,6 @@ def main() -> int:
         ("bounds w8", [255, 256, 257, 511, 512], [0, 1, 255, 256, 257, 511, 512, 513], 512, 513, (97, 99)),
         ("bounds w64", [0, 257, 2047, 2048, 2049, 4095, 4096], [0, 1, 64, 257, 2048, 4095, 4096], 4096, 4096, (97, 99)),
     ]
-    max_err = {"myers_tier_a": 0, "myers_tier_b": 0}
     for name, q_lens, c_lens, rows, cand_len, (lo, hi) in cases:
         args = [torch.from_numpy(x).to(dev) for x in
                 _block(rng, q_lens, c_lens, rows, cand_len, lo, hi)]
@@ -154,12 +261,142 @@ def main() -> int:
         sync()
         err = int((got.long() - want.long()).abs().max())
         tier = "myers_tier_a" if words_of(rows) <= 4 else "myers_tier_b"
-        max_err[tier] = max(max_err[tier], err)
+        max_err[tier] = max(max_err.get(tier, 0), err)
         print(f"[kernel] {name:22s} {tier} rows={rows} cand_len={cand_len} "
               f"{len(q_lens)}x{len(c_lens)} max_abs_err={err}")
         _check(torch.equal(got, want), f"kernel != plain version in case {name}")
 
-    # -- phase 4: the main path through the engine --------------------------
+
+def _dp_configs(k):
+    """The 16 column-DP configurations, with the k-th costs of each kind:
+    both signs of every cost appear over k = 0..4, so gaps of the wrong
+    sign for the objective are covered."""
+    from stringzilla_tpu_torch.ops.similarity import (
+        AffineGaps, ClassCosts, LinearGaps, SimilarityConfig, UniformCosts)
+
+    linear = [2, -3, 1, -1, 4]
+    affine = [(3, 1), (-3, -1), (-10, -1), (5, -2), (-2, 4)]
+    uniform = [(0, 1), (-1, 3), (2, -1), (0, 2), (5, -4)]
+    # the kernel reads its table argument, not the config's
+    classes = ClassCosts.from_arrays(np.arange(256) % 64, np.zeros((32, 32)))
+    for objective, locality, is_affine, uses_classes in itertools.product(
+            ("min", "max"), ("global", "local"), (False, True), (False, True)):
+        gaps = AffineGaps(*affine[k]) if is_affine else LinearGaps(linear[k])
+        costs = classes if uses_classes else UniformCosts(*uniform[k])
+        yield SimilarityConfig(objective, locality, gaps, costs)
+
+
+def _dp_block(rng, rows, q_lens, cand_len, c_lens, lo, hi):
+    """Blocks in the column DP's layouts: the query shifted down one row
+    (row 0 and padding 0); every third candidate a mutated copy of a
+    query."""
+    nq, nc = len(q_lens), len(c_lens)
+    q_t = np.zeros((rows, nq), np.int32)
+    for i, m in enumerate(q_lens):
+        q_t[1: m + 1, i] = rng.integers(lo, hi, m)
+    c_t = np.zeros((cand_len, nc), np.int32)
+    for j, n in enumerate(c_lens):
+        c_t[:n, j] = rng.integers(lo, hi, n)
+        if j % 3 == 0:
+            src = q_t[1: q_lens[j % nq] + 1, j % nq]
+            k = min(n, len(src))
+            c_t[:k, j] = np.where(rng.random(k) > 0.2, src[:k], c_t[:k, j])
+    return (q_t, np.asarray(q_lens, np.int32).reshape(-1, 1), c_t,
+            np.asarray(c_lens, np.int32).reshape(1, -1))
+
+
+def _check_dp_kernel(dev, sync, max_err):
+    """Phase 3b: the column DP in all 16 configurations against its plain
+    version."""
+    import torch
+    from stringzilla_tpu_torch.ops import similarity_dp as dp_mod
+    from stringzilla_tpu_torch.ops.similarity import similarity_reference
+    from stringzilla_tpu_torch.ops.similarity_dp import similarity
+
+    rng = np.random.default_rng(SEED + 3)
+    table = torch.from_numpy(rng.integers(-8, 9, (32, 32)).astype(np.int32)).to(dev)
+    shapes = [  # rows, query lengths, cand_len, candidate count
+        (8, [0, 7, 3, 5], 40, 300),
+        (40, [0, 39, 31, 32, 33], 70, 300),
+        (136, [0, 135, 64, 65], 140, 200),
+        (1032, [0, 1031, 517], 100, 100),
+        (4104, [0, 4103], 40, 64),
+    ]
+    err = 0
+    for k, (rows, q_lens, cand_len, nc) in enumerate(shapes):
+        c_lens = np.concatenate([[0, 1, 31, 32, 33, cand_len],
+                                 rng.integers(0, cand_len + 1, nc - 6)])
+        blocks = {  # class ids 0-39 (>= 32 cost 0); raw chars -2..5
+            True: [torch.from_numpy(x).to(dev) for x in
+                   _dp_block(rng, rows, q_lens, cand_len, c_lens, 0, 40)],
+            False: [torch.from_numpy(x).to(dev) for x in
+                    _dp_block(rng, rows, q_lens, cand_len, c_lens, -2, 6)]}
+        for cfg in _dp_configs(k):
+            args = blocks[cfg.uses_classes]
+            got = similarity(*args, cfg, table)
+            want = similarity_reference(*args, cfg, table)
+            sync()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            _check(torch.equal(got, want), f"similarity kernel != plain version "
+                   f"at rows {rows} in {cfg}")
+        print(f"[kernel] similarity_dp rows={rows} cand_len={cand_len} "
+              f"{len(q_lens)}x{nc}: 16 configurations exact")
+    # A scratch cap below one launch's need splits it over query and
+    # candidate ranges; the last shape's affine configurations then run as
+    # 2 x 64 and as 1 x 8 launches.
+    cap = dp_mod.SCRATCH_CAP_BYTES
+    try:
+        for dp_mod.SCRATCH_CAP_BYTES in (cand_len * 8, cand_len * 8 * 2 * 9):
+            for cfg in _dp_configs(len(shapes) - 1):
+                if cfg.is_affine:
+                    args = blocks[cfg.uses_classes]
+                    before = dp_mod.KERNEL_LAUNCHES["similarity_dp"]
+                    got = similarity(*args, cfg, table)
+                    launched = dp_mod.KERNEL_LAUNCHES["similarity_dp"] - before
+                    want = similarity_reference(*args, cfg, table)
+                    sync()
+                    _check(launched > 1 and torch.equal(got, want),
+                           f"similarity kernel split over {launched} launches "
+                           f"!= plain version in {cfg}")
+    finally:
+        dp_mod.SCRATCH_CAP_BYTES = cap
+    print("[kernel] similarity_dp split over query and candidate ranges: exact")
+    max_err["similarity_dp"] = err
+
+
+def _check_lut_kernel(dev, sync, max_err):
+    """Phase 3b: the byte LUT against its plain version."""
+    import torch
+    from stringzilla_tpu_torch.ops.memory import lookup_transform
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    lut = torch.randperm(256, generator=gen, device=dev).to(torch.uint8)
+    err = 0
+    for n, offset in [(0, 0), (1, 0), (15, 0), (16, 0), (17, 0),
+                      (2**24 + 3, 0), (2**20 + 5, 1)]:
+        base = torch.randint(0, 256, (n + offset,), dtype=torch.uint8,
+                             generator=gen, device=dev)
+        x = base[offset:]
+        got = lookup_transform(x, lut)
+        want = lut[x.long()]
+        sync()
+        if n:
+            err = max(err, int((got.int() - want.int()).abs().max()))
+        _check(torch.equal(got, want), f"lut kernel != plain version at n={n}")
+        print(f"[kernel] byte_lut n={n} offset={offset} exact")
+    max_err["byte_lut"] = err
+
+
+def _myers_main_path(dev, sync, report):
+    """Phase 4: unit-cost Levenshtein through the engine."""
+    import torch
+    from stringzilla_tpu_torch import LevenshteinDistances, Tape
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+    from stringzilla_tpu_torch.ops.myers import myers, myers_reference
+    from stringzilla_tpu_torch.ops.pack_device import device_tape, pack_chars
+    from tests.oracles import levenshtein
+
     rng = np.random.default_rng(SEED)  # bench.py's draws, in bench.py's order
 
     def make_batch(count, maxlen, mean_len=100):
@@ -169,32 +406,30 @@ def main() -> int:
         return [chars[: lens[i], i].astype(np.uint8).tobytes()
                 for i in range(count)]
 
-    head_q = make_batch(128, 128)
-    head_c = make_batch(32768, 128)
+    head_q = make_batch(HEADLINE[0], 128)
+    head_c = make_batch(HEADLINE[1], 128)
     long_rng = np.random.default_rng(SEED + 1)
     long_q = [long_rng.integers(97, 123, n).astype(np.uint8).tobytes()
-              for n in long_rng.integers(300, 4097, 16)]
+              for n in long_rng.integers(300, 4097, LONG[0])]
     long_c = []
-    for j, n in enumerate(long_rng.integers(300, 4097, 2048)):
+    for j, n in enumerate(long_rng.integers(300, 4097, LONG[1])):
         chars = long_rng.integers(97, 123, n).astype(np.uint8)
         if j % 4 == 0:  # near-duplicates of a query as well as random lines
-            src = np.frombuffer(long_q[j % 16], np.uint8)[:n]
+            src = np.frombuffer(long_q[j % LONG[0]], np.uint8)[:n]
             keep = long_rng.random(len(src)) > 0.05
             chars[: len(src)] = np.where(keep, src, chars[: len(src)])
         long_c.append(chars.tobytes())
 
     engine = LevenshteinDistances()
     sync()
-    for k in myers_mod.KERNEL_LAUNCHES:
-        myers_mod.KERNEL_LAUNCHES[k] = 0
+    _reset(myers_mod.KERNEL_LAUNCHES)
     head = engine(head_q, head_c)
     long_ = engine(long_q, long_c)
     launches = dict(myers_mod.KERNEL_LAUNCHES)
-    print(f"[engine] launches on the main path: {launches}")
+    print(f"[engine] launches on the unit-cost main path: {launches}")
     for k, n in launches.items():
         _check(n > 0, f"{k} was not launched on the main path")
 
-    report = {}
     for name, qs, cs, res, n_wf, tier in (
             ("headline", head_q, head_c, head, 256, "myers_tier_a"),
             ("long", long_q, long_c, long_, 16, "myers_tier_b")):
@@ -223,30 +458,244 @@ def main() -> int:
         print(f"[engine] {name}: {len(qs)}x{len(cs)} equals the plain version "
               f"and Wagner-Fischer on {n_wf} pairs")
 
-        cells = float(sum(map(len, qs))) * float(sum(map(len, cs)))
+        ql = np.array([len(q) for q in qs], np.float64)
+        cl = np.array([len(c) for c in cs], np.float64)
+        cells = ql.sum() * cl.sum()
+        word_steps = np.ceil(ql / 64).sum() * cl.sum()
+        nbytes = 4.0 * (rows * len(qs) + cand_len * len(cs) + len(qs) * len(cs))
         t0 = time.perf_counter()
         engine_runs = 3
         for _ in range(engine_runs):
             engine(qs, cs)
         engine_s = (time.perf_counter() - t0) / engine_runs
+        _profile(name, lambda: engine(qs, cs), sync)
         kernel_ms = _time_ms(lambda: myers(*packed), 10, sync)
         plain_ms = _time_ms(lambda: myers_reference(*packed), 1, sync)
-        report[tier] = (kernel_ms, plain_ms)
+        bound_ms, bound_by = _bound(MYERS_OPS_PER_WORD_STEP * word_steps, nbytes)
+        report[tier] = dict(launches=launches[tier], ms=kernel_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None)
         print(f"[perf] {name} rows={rows} cand_len={cand_len} cells={cells:.0f}: "
               f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
               f"kernel {kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; "
-              f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS")
+              f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def _proteins(rng):
+    """``bench_nw_proteins``'s draws, in its order: the symmetric random
+    table, then queries, then candidates."""
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+    b2c = np.zeros(256, dtype=np.uint8)
+    b2c[aa] = np.arange(len(aa))
+    table = rng.integers(-4, 6, (32, 32)).astype(np.int32)
+    table = ((table + table.T) // 2).astype(np.int32)
+    np.fill_diagonal(table, rng.integers(4, 10, 32))
+    qs = [rng.choice(aa, int(n)).tobytes() for n in
+          np.clip(rng.normal(1000, 100, PROTEINS[0]).astype(int), 100, 1024)]
+    cs = [rng.choice(aa, int(n)).tobytes() for n in
+          np.clip(rng.normal(1000, 100, PROTEINS[1]).astype(int), 100, 1024)]
+    return b2c, table, qs, cs
+
+
+def _lines(rng):
+    """``bench.py``'s lines: lengths N(100, 12.5) clipped to [8, 128]."""
+    def make_batch(count, maxlen=128, mean_len=100):
+        lens = np.clip(rng.normal(mean_len, mean_len / 8, count).astype(np.int32),
+                       8, maxlen)
+        chars = rng.integers(97, 123, size=(maxlen, count), dtype=np.int32)
+        return [chars[: lens[i], i].astype(np.uint8).tobytes() for i in range(count)]
+    return make_batch(LINES[0]), make_batch(LINES[1])
+
+
+def _dp_main_path(dev, sync, report):
+    """Phase 4b: the column-DP engines on proteins and weighted lines."""
+    import torch
+    from stringzilla_tpu_torch import (LevenshteinDistances, NeedlemanWunschScores,
+                                       SmithWatermanScores, Tape)
+    from stringzilla_tpu_torch.ops import memory as memory_mod
+    from stringzilla_tpu_torch.ops import similarity_dp as dp_mod
+    from stringzilla_tpu_torch.ops.memory import lookup_reference, lookup_transform
+    from stringzilla_tpu_torch.ops.pack_device import device_tape, pack_chars
+    from stringzilla_tpu_torch.ops.similarity import similarity_reference
+    from stringzilla_tpu_torch.ops.similarity_dp import similarity
+
+    b2c, table, prot_q, prot_c = _proteins(np.random.default_rng(SEED))
+    line_q, line_c = _lines(np.random.default_rng(SEED))
+    # Tapes built once, outside the timed calls, as bench_nw_proteins does.
+    prot_qt, prot_ct = Tape.from_strings(prot_q), Tape.from_strings(prot_c)
+    runs = [  # name, engine, inputs, strings, gaps (open, extend or None)
+        ("nw-linear", NeedlemanWunschScores(b2c, table, open=-5, extend=-5),
+         (prot_qt, prot_ct), (prot_q, prot_c), (-5, None)),
+        ("sw-linear", SmithWatermanScores(b2c, table, open=-5, extend=-5),
+         (prot_qt, prot_ct), (prot_q, prot_c), (-5, None)),
+        ("nw-affine", NeedlemanWunschScores(b2c, table, open=-10, extend=-1),
+         (prot_qt, prot_ct), (prot_q, prot_c), (-10, -1)),
+        ("sw-affine", SmithWatermanScores(b2c, table, open=-10, extend=-1),
+         (prot_qt, prot_ct), (prot_q, prot_c), (-10, -1)),
+        ("lev-weighted", LevenshteinDistances(match=0, mismatch=2, open=3, extend=1),
+         (line_q, line_c), (line_q, line_c), (3, 1)),
+    ]
+    sync()
+    _reset(dp_mod.KERNEL_LAUNCHES, memory_mod.KERNEL_LAUNCHES)
+    results = [engine(*inputs) for _, engine, inputs, _, _ in runs]
+    launches = {**dp_mod.KERNEL_LAUNCHES, **memory_mod.KERNEL_LAUNCHES}
+    print(f"[engine] launches on the column-DP main path: {launches}")
+    for k, n in launches.items():
+        _check(n > 0, f"{k} was not launched on the main path")
+
+    padded = np.zeros((33, 33), np.int64)
+    padded[:32, :32] = table
+    err = 0
+    for (name, engine, inputs, (qs, cs), (gap, extend)), res in zip(runs, results):
+        cfg = engine.config
+        want_dtype = np.uint64 if name.startswith("lev") else np.int64
+        _check(res.dtype == want_dtype and res.shape == (len(qs), len(cs)),
+               f"{name}: result {res.dtype} {res.shape}")
+        # one block of every query (shifted layout) and one of every
+        # candidate, class-mapped on the host for class costs
+        to_chars = ((lambda s: b2c[np.frombuffer(s, np.uint8)].tobytes())
+                    if cfg.uses_classes else (lambda s: s))
+        rows = -(-(max(map(len, qs)) + 1) // 8) * 8
+        cand_len = max(map(len, cs))
+        qdt = device_tape(Tape.from_strings([to_chars(q) for q in qs]), dev)
+        cdt = device_tape(Tape.from_strings([to_chars(c) for c in cs]), dev)
+        q_offs, q_lens = qdt.bucket_arrays(np.arange(len(qs)))
+        c_offs, c_lens = cdt.bucket_arrays(np.arange(len(cs)))
+        packed = (pack_chars(qdt.data, q_offs, q_lens, row_len=rows - 1,
+                             transpose=True, fill=0, shift=True), q_lens.view(-1, 1),
+                  pack_chars(cdt.data, c_offs, c_lens, row_len=cand_len,
+                             transpose=True, fill=0), c_lens.view(1, -1))
+        table_t = (torch.from_numpy(cfg.costs.table_np()).to(dev)
+                   if cfg.uses_classes else None)
+        plain = similarity_reference(*packed, cfg, table_t)
+        alone = similarity(*packed, cfg, table_t)
+        sync()
+        err = max(err, int((alone.long() - plain.long()).abs().max()))
+        _check(torch.equal(alone, plain), f"{name}: kernel != plain version")
+        _check(np.array_equal(res.astype(np.int64), plain.cpu().numpy()),
+               f"{name}: engine result != plain version on the card")
+        pick = np.random.default_rng(SEED + 4)
+        n_pairs = 3 if cfg.uses_classes else 8
+        for i, j in zip(pick.integers(0, len(qs), n_pairs),
+                        pick.integers(0, len(cs), n_pairs)):
+            a = np.frombuffer(qs[i], np.uint8)
+            b = np.frombuffer(cs[j], np.uint8)
+            if cfg.uses_classes:
+                sub = lambda r, a=a, b=b: padded[b2c[a[r - 1]], b2c[b]]
+            else:
+                sub = lambda r, a=a, b=b: np.where(b == a[r - 1], cfg.costs.match,
+                                                   cfg.costs.mismatch)
+            want = _gotoh(a, b, sub, gap, extend, cfg.objective == "max", cfg.is_local)
+            _check(int(res.astype(np.int64)[i, j]) == want,
+                   f"{name}: pair ({i}, {j}) != the numpy DP")
+        print(f"[engine] {name}: {len(qs)}x{len(cs)} equals the plain version "
+              f"and the numpy DP on {n_pairs} pairs")
+
+        ql = np.array([len(q) for q in qs], np.float64)
+        cl = np.array([len(c) for c in cs], np.float64)
+        cells = ql.sum() * cl.sum()
+        nbytes = 4.0 * (rows * len(qs) + cand_len * len(cs) + len(qs) * len(cs))
+        t0 = time.perf_counter()
+        engine_runs = 3
+        for _ in range(engine_runs):
+            engine(*inputs)
+        engine_s = (time.perf_counter() - t0) / engine_runs
+        _profile(name, lambda: engine(*inputs), sync)
+        kernel_ms = _time_ms(lambda: similarity(*packed, cfg, table_t), 10, sync)
+        plain_ms = _time_ms(lambda: similarity_reference(*packed, cfg, table_t), 1, sync)
+        bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * cells, nbytes)
+        if name == "nw-affine":  # the reference's CUDA row (BASELINE.md:34)
+            report["similarity_dp"] = dict(
+                launches=launches["similarity_dp"], ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print(f"[perf] {name} rows={rows} cand_len={cand_len} cells={cells:.0f}: "
+              f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
+              f"kernel {kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; "
+              f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+    report["similarity_dp"]["max_abs_err"] = err
+
+    lut_t = torch.from_numpy(b2c).to(dev)
+    for name, blob in (("protein candidates' blob", device_tape(prot_ct, dev).data),
+                       ("16 MiB", torch.randint(0, 256, (1 << 24,), dtype=torch.uint8,
+                                                device=dev))):
+        kernel_ms = _time_ms(lambda: lookup_transform(blob, lut_t), 100, sync)
+        plain_ms = _time_ms(lambda: lookup_reference(blob, lut_t), 100, sync)
+        library_ms = _time_ms(lambda: lut_t[blob.long()], 100, sync)
+        bound_ms, bound_by = _bound(0.0, 2.0 * blob.numel())
+        if name.startswith("protein"):
+            report["byte_lut"] = dict(
+                launches=launches["byte_lut"], ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        print(f"[perf] byte_lut on the {name}, {blob.numel()} bytes: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, lut[x.long()] "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def run(dev) -> list:
+    """Phases 3-4b on ``dev``; returns each kernel's report entry."""
+    import torch
+
+    sync = torch.cuda.synchronize
+    max_err, report = {}, {}
+    _check_myers_kernel(dev, sync, max_err)
+    _check_dp_kernel(dev, sync, max_err)
+    _check_lut_kernel(dev, sync, max_err)
+    _myers_main_path(dev, sync, report)
+    _dp_main_path(dev, sync, report)
+    replaces = {
+        "myers_tier_a": ("stringzilla_tpu/ops/myers_pallas.py:396", "csrc/myers.cu"),
+        "myers_tier_b": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
+        "similarity_dp": ("stringzilla_tpu/ops/similarity_pallas.py:78",
+                          "csrc/similarity.cu"),
+        "byte_lut": ("stringzilla_tpu/ops/memory_pallas.py:34", "csrc/lut.cu"),
+    }
+    return [{"name": k, "route": "cuda",
+             "source": f"stringzilla_tpu_torch/{src}", "replaces": tpu,
+             "launches": report[k]["launches"],
+             "max_abs_err": report[k].get("max_abs_err", max_err[k]),
+             "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"],
+             "bound_ms": report[k]["bound_ms"], "bound_by": report[k]["bound_by"],
+             "library_ms": report[k]["library_ms"]}
+            for k, (tpu, src) in replaces.items()]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    from stringzilla_tpu_torch.utils import cuda_build
+
+    # -- phase 1: device ---------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)} capability "
+          f"{torch.cuda.get_device_capability(0)}")
+
+    # -- phase 2: build ----------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_build.load()
+    print(f"[build] csrc/*.cu -> sm_90a in {time.perf_counter() - t0:.3f} s")
+    for line in cuda_build.build_log().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[build] {line.strip()}")
+
+    # -- phases 3-4b: kernels against plain versions, then the main paths ---
+    t0 = time.perf_counter()
+    kernels = run(torch.device("cuda", 0))
+    print(f"[run] phases 3-4b in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
-    replaces = {"myers_tier_a": "stringzilla_tpu/ops/myers_pallas.py:396",
-                "myers_tier_b": "stringzilla_tpu/ops/myers_pallas.py:89"}
     print(card)
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda",
-         "source": "stringzilla_tpu_torch/csrc/myers.cu",
-         "replaces": replaces[k], "launches": launches[k],
-         "max_abs_err": max_err[k], "ms": report[k][0],
-         "plain_ms": report[k][1]} for k in replaces]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

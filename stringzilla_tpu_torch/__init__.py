@@ -12,8 +12,11 @@ Layout mirrors ``stringzilla_tpu`` so each module has a counterpart:
 * ``stringzilla_tpu_torch.models`` — engine classes and ``DeviceScope``
 * ``stringzilla_tpu_torch.utils``  — device resolution, the CUDA kernel build
 
-Ported so far: ``LevenshteinDistances`` with unit costs over byte strings
-of up to 4096 bytes.
+Ported so far, over byte strings of up to 4096 bytes on one device:
+``LevenshteinDistances`` with any costs (unit costs on the Myers kernel,
+others on the column DP), ``NeedlemanWunschScores`` and
+``SmithWatermanScores`` (the column DP, with the byte-LUT kernel mapping
+bytes to cost classes).
 """
 
 from .models.device_scope import DeviceScope
@@ -21,7 +24,9 @@ from .models.similarities import (
     LevenshteinDistances,
     LevenshteinDistancesUTF8,
     NeedlemanWunsch,
+    NeedlemanWunschScores,
     SmithWaterman,
+    SmithWatermanScores,
 )
 from .ops.tape import Tape
 from .utils import platform
@@ -38,7 +43,9 @@ __all__ = [
     "LevenshteinDistances",
     "LevenshteinDistancesUTF8",
     "NeedlemanWunsch",
+    "NeedlemanWunschScores",
     "SmithWaterman",
+    "SmithWatermanScores",
     "Tape",
     "__capabilities__",
 ]

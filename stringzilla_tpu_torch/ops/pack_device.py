@@ -1,14 +1,18 @@
 """Device-resident ragged→dense packing — the on-device half of the tape.
 
 Counterpart of ``stringzilla_tpu/ops/pack_device.py``. The blob travels to
-the scope's device once, as raw bytes; every bucketed dense block the Myers
-kernel reads is then one gather and one mask on the device. The host's jobs
-are bucketing (integer work on lengths) and pulling results.
+the scope's device once, as raw bytes; every bucketed dense block the DP
+kernels read is then one gather and one mask on the device. The host's jobs
+are bucketing (integer work on lengths) and pulling results. A class-cost
+engine maps the blob to cost classes once on the device and builds a second
+``DeviceTape`` over the mapped blob, with the same starts and lengths.
 
 Layout produced: ``transpose=True`` → ``(row_len, count)`` int32, characters
 down the rows and one string per column (what the kernels read, so a step's
 loads of neighbouring strings are neighbouring addresses);
-``transpose=False`` → ``(count, row_len)``.
+``transpose=False`` → ``(count, row_len)``. ``shift=True`` prepends the
+zero row of the column DP's +1-shifted query layout, so the block has
+``row_len + 1`` rows.
 """
 
 from __future__ import annotations
@@ -30,14 +34,21 @@ class DeviceTape:
     and only per-bucket ``(offs, lens)`` vectors ride to the device.
     """
 
-    def __init__(self, tape: Tape, device: torch.device):
-        blob = np.zeros(tape.total_bytes + 1, dtype=np.uint8)
-        blob[:-1] = np.asarray(tape.data, dtype=np.uint8)[: tape.total_bytes]
-        self.device = torch.device(device)
-        self.data = torch.from_numpy(blob).to(self.device)
-        offsets = np.asarray(tape.offsets, dtype=np.int64)
-        self.starts = offsets[:-1]
-        self.lengths = np.diff(offsets)
+    def __init__(self, tape: Tape | None = None, device: torch.device | None = None,
+                 *, data: torch.Tensor | None = None, starts=None, lengths=None):
+        """From a host ``tape`` copied to ``device``, or from a ``data`` blob
+        already on a device (with its trailing zero byte) plus host
+        ``starts``/``lengths``."""
+        if tape is not None:
+            blob = np.zeros(tape.total_bytes + 1, dtype=np.uint8)
+            blob[:-1] = np.asarray(tape.data, dtype=np.uint8)[: tape.total_bytes]
+            data = torch.from_numpy(blob).to(torch.device(device))
+            offsets = np.asarray(tape.offsets, dtype=np.int64)
+            starts, lengths = offsets[:-1], np.diff(offsets)
+        self.data = data
+        self.device = data.device
+        self.starts = np.asarray(starts, dtype=np.int64)
+        self.lengths = np.asarray(lengths, dtype=np.int64)
 
     def __len__(self) -> int:
         return len(self.starts)
@@ -51,14 +62,18 @@ class DeviceTape:
 
 
 def pack_chars(blob: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor, *,
-               row_len: int, transpose: bool, fill: int) -> torch.Tensor:
+               row_len: int, transpose: bool, fill: int,
+               shift: bool = False) -> torch.Tensor:
     """Dense int32 char block of the strings at ``offs``/``lens`` in
     ``blob``, padded with ``fill`` past each string's end; strings longer
-    than ``row_len`` are cut (callers bucket so they never are)."""
+    than ``row_len`` are cut (callers bucket so they never are). ``shift``
+    prepends a zero row (a zero column before the transpose)."""
     j = torch.arange(row_len, device=blob.device)
     valid = j[None, :] < lens[:, None]
     pos = torch.where(valid, offs[:, None] + j[None, :], 0)
     vals = torch.where(valid, blob[pos].to(torch.int32), fill)
+    if shift:
+        vals = torch.cat([torch.zeros_like(vals[:, :1]), vals], dim=1)
     return vals.T.contiguous() if transpose else vals
 
 

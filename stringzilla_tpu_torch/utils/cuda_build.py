@@ -6,6 +6,8 @@ meaningless after a checkout), written under a temporary name and renamed
 into place atomically, then loaded with ``ctypes``. The sources have a
 plain C interface and include no PyTorch header, so ``nvcc`` compiles them
 in seconds rather than the minutes a ``torch/extension.h`` build takes.
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more links the objects into the library.
 
 The library lands in ``build/stringzilla_tpu_torch/`` beside the package
 (ignored by git) on first use, so a fresh checkout builds it by itself.
@@ -22,14 +24,15 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["load", "build_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "stringzilla_tpu_torch")
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -59,17 +62,31 @@ def _build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{so}.tmp{os.getpid()}"
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    with open(so[:-3] + ".log", "w") as f:  # ptxas register/spill report
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, so)  # atomic when several processes build at once
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    commands = [[nvcc, *_FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(sources, objects)]
+    commands.append([nvcc, *_ARCH, "-shared", "-o", tmp, *objects])
+    run = lambda cmd: subprocess.run(cmd, capture_output=True, text=True,
+                                     timeout=600)
+    try:
+        with ThreadPoolExecutor(len(sources)) as pool:
+            procs = list(pool.map(run, commands[:-1]))
+        if all(p.returncode == 0 for p in procs):
+            procs.append(run(commands[-1]))
+        log = "".join(p.stdout + p.stderr for p in procs)
+        failed = [p for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed (exit {failed[0].returncode}) on "
+                               f"{failed[0].args[-1]}:\n{log}")
+        with open(so[:-3] + ".log", "w") as f:  # ptxas register/spill report
+            f.write(log)
+        os.replace(tmp, so)  # atomic when several processes build at once
+    finally:
+        for path in [tmp, *objects]:
+            if os.path.exists(path):
+                os.unlink(path)
     return so
 
 
@@ -83,6 +100,10 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.sz_myers.argtypes = [p, i, p, i, p, p, i, i, p, p]
             lib.sz_myers.restype = i
+            lib.sz_similarity.argtypes = [i] * 8 + [p, i, p, i, p, p] + [i] * 6 + [p, p, p, p]
+            lib.sz_similarity.restype = i
+            lib.sz_lookup.argtypes = [p, ctypes.c_size_t, p, p, i, p]
+            lib.sz_lookup.restype = i
             lib.sz_cuda_error_string.argtypes = [i]
             lib.sz_cuda_error_string.restype = ctypes.c_char_p
             _lib, _log_path = lib, so[:-3] + ".log"

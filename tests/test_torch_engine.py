@@ -1,6 +1,8 @@
-"""The port's ``LevenshteinDistances`` on a CPU scope against the JAX
-package's engine (Pallas interpreter on the CPU) and Wagner-Fischer, on the
-same numpy-seeded inputs. Tolerance: exact equality of the uint64 results."""
+"""The port's engines on a CPU scope against the JAX package's engines
+(Pallas interpreter on the CPU), Wagner-Fischer and the Gotoh oracle, on the
+same numpy-seeded inputs: ``LevenshteinDistances`` with unit and other
+costs, ``NeedlemanWunschScores`` and ``SmithWatermanScores``. Tolerance:
+exact equality of the uint64 / int64 results."""
 
 import os
 import subprocess
@@ -15,10 +17,17 @@ import stringzilla_tpu as jsz  # noqa: E402
 import stringzilla_tpu_torch as tsz  # noqa: E402
 from stringzilla_tpu_torch.models import device_scope  # noqa: E402
 
-from .oracles import levenshtein  # noqa: E402
+from .oracles import levenshtein, score_affine, score_linear  # noqa: E402
 
 CPU = tsz.DeviceScope(device="cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _rng():
+    """A generator of this file's own: the column-DP tests draw the same
+    data in any order and leave the session ``rng``, which other files
+    share, as it is."""
+    return np.random.default_rng(42)
 
 
 def _strings(rng, lengths, alphabet=b"abc"):
@@ -91,13 +100,17 @@ def test_engine_str_input_dtype_and_errors():
     with pytest.raises(TypeError):
         eng([b"ab", 3], device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsz.LevenshteinDistances(mismatch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsz.LevenshteinDistancesUTF8()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsz.NeedlemanWunsch()
     with pytest.raises(NotImplementedError, match="long-pair"):
         eng([b"a" * 5000], [b"ab"], device=CPU)
+    # non-unit engines compute pairs of up to 4096 bytes and raise beyond
+    with pytest.raises(NotImplementedError, match="long-pair"):
+        tsz.LevenshteinDistances(mismatch=2)([b"ab"], [b"a" * 4097], device=CPU)
+    with pytest.raises(NotImplementedError, match="long-pair"):
+        tsz.NeedlemanWunsch(substitution_matrix=np.eye(32, dtype=np.int32))(
+            [b"a" * 4097], [b"ab"], device=CPU)
+    with pytest.raises(ValueError):
+        tsz.NeedlemanWunsch()  # no costs given, as the JAX engine raises
     with pytest.raises(ValueError):
         tsz.LevenshteinDistances(open=300)
 
@@ -129,3 +142,132 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _proteins(rng, lengths):
+    return _strings(rng, lengths, b"ACDEFGHIKLMNPQRSTVWY")
+
+
+def _class_costs(rng):
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    b2c = np.zeros(256, np.uint8)
+    b2c[aa] = np.arange(20)
+    table = rng.integers(-4, 6, (32, 32)).astype(np.int32)
+    table = (table + table.T) // 2
+    np.fill_diagonal(table, rng.integers(4, 10, 32))
+    return b2c, table
+
+
+@pytest.mark.parametrize("engine,open,extend", [
+    ("NeedlemanWunschScores", -5, -5), ("NeedlemanWunschScores", -10, -1),
+    ("SmithWatermanScores", -5, -5), ("SmithWatermanScores", -10, -1)])
+def test_nw_sw_match_jax(engine, open, extend):
+    """Two dyadic buckets a side (rows 16 and 24); one candidate holds most
+    of a query, so alignments score high."""
+    rng = _rng()
+    b2c, table = _class_costs(rng)
+    qs = _proteins(rng, [0, 7, 16])
+    cs = _proteins(rng, [0, 1, 9, 16])
+    cs[-1] = qs[-1][:12] + cs[-1][:4]
+    got = getattr(tsz, engine)(b2c, table, open=open, extend=extend)(qs, cs, device=CPU)
+    want = getattr(jsz, engine)(b2c, table, open=open, extend=extend)(qs, cs)
+    assert got.dtype == np.int64 and got.shape == (3, 4)
+    np.testing.assert_array_equal(got, want)
+    sub = lambda x, y: int(table[b2c[x], b2c[y]])
+    local = engine.startswith("Smith")
+    for i, j in [(2, 3), (1, 2), (0, 2)]:
+        oracle = (score_linear(qs[i], cs[j], sub, open, "max", local) if open == extend
+                  else score_affine(qs[i], cs[j], sub, open, extend, "max", local))
+        assert got[i, j] == oracle
+
+
+def test_substitution_matrix_forms_match_jax():
+    """A dense 256x256 matrix compresses to classes; a 32x32 one maps byte
+    b to class b % 32. Both as the JAX engines do."""
+    rng = _rng()
+    b2c, table = _class_costs(rng)
+    dense = table[b2c][:, b2c]
+    qs = _proteins(rng, [9, 16])
+    cs = _proteins(rng, [0, 5, 14])
+    for matrix in (dense, table):
+        got = tsz.NeedlemanWunsch(substitution_matrix=matrix, open=-3, extend=-1)(
+            qs, cs, device=CPU)
+        want = jsz.NeedlemanWunsch(substitution_matrix=matrix, open=-3, extend=-1)(qs, cs)
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        tsz.SmithWaterman(substitution_matrix=np.zeros((16, 16)))
+
+
+@pytest.mark.parametrize("costs", [
+    dict(match=0, mismatch=2, open=3, extend=1), dict(mismatch=3, open=2, extend=2),
+    dict(match=-1), dict(match=-2, mismatch=1, open=-3, extend=-1),
+    dict(open=-3, extend=-1)])
+def test_weighted_levenshtein_matches_jax(costs):
+    """Weighted, affine, negative and wrong-sign costs; negative distances
+    wrap in uint64 as in the JAX package."""
+    rng = _rng()
+    qs = _strings(rng, [0, 4, 8])
+    cs = _strings(rng, [0, 2, 5, 8])
+    got = tsz.LevenshteinDistances(**costs)(qs, cs, device=CPU)
+    want = jsz.LevenshteinDistances(**costs)(qs, cs)
+    assert got.dtype == np.uint64
+    np.testing.assert_array_equal(got, want)
+
+
+def test_negative_distance_wraps_in_uint64():
+    got = tsz.LevenshteinDistances(match=-1)([b"aaa"], [b"aaa"], device=CPU)
+    assert got.dtype == np.uint64 and int(got[0, 0]) == 2**64 - 3
+    np.testing.assert_array_equal(got, jsz.LevenshteinDistances(match=-1)([b"aaa"], [b"aaa"]))
+
+
+def test_int_array_host_collection_with_classes():
+    """Int-array inputs keep the host collection and map through b2c by
+    numpy indexing, class ids >= 32 included (they cost 0)."""
+    rng = _rng()
+    b2c = (np.arange(256) % 64).astype(np.uint8)
+    table = rng.integers(-5, 6, (32, 32)).astype(np.int32)
+    qs = [rng.integers(0, 256, int(n)).astype(np.int64) for n in (0, 5, 8)]
+    cs = [rng.integers(0, 256, int(n)).astype(np.int32) for n in (3, 7, 0, 8)]
+    for engine in ("NeedlemanWunschScores", "SmithWatermanScores"):
+        got = getattr(tsz, engine)(b2c, table, open=-2, extend=-1)(qs, cs, device=CPU)
+        want = getattr(jsz, engine)(b2c, table, open=-2, extend=-1)(qs, cs)
+        np.testing.assert_array_equal(got, want)
+    two = tsz.NeedlemanWunsch(b2c, np.full((32, 32), 7), open=-1, extend=-1)(
+        [bytes([40, 40])], [bytes([40, 40])], device=CPU)
+    assert two[0, 0] == 0  # class 40: no table entry, cost 0
+
+
+def test_score_engine_symmetric_call_matches_jax():
+    rng = _rng()
+    b2c, table = _class_costs(rng)
+    seqs = _proteins(rng, rng.integers(0, 9, 6))
+    got = tsz.SmithWatermanScores(b2c, table, open=-4, extend=-1)(seqs, device=CPU)
+    want = jsz.SmithWatermanScores(b2c, table, open=-4, extend=-1)(seqs)
+    np.testing.assert_array_equal(got, want)
+    assert (got == got.T).all()
+
+
+def test_class_mapped_tape_is_memoised(monkeypatch):
+    """One LUT pass per collection and table, however many calls."""
+    rng = _rng()
+    from stringzilla_tpu_torch.models import similarities as tsim
+
+    calls = []
+    real = tsim.lookup_transform
+    monkeypatch.setattr(tsim, "lookup_transform",
+                        lambda data, lut: calls.append(len(data)) or real(data, lut))
+    b2c, table = _class_costs(rng)
+    tape = tsz.Tape.from_strings(_proteins(rng, [3, 10, 25]))
+    nw = tsz.NeedlemanWunsch(b2c, table)
+    first = nw(tape, tape, device=CPU)
+    np.testing.assert_array_equal(nw(tape, device=CPU), first)
+    tsz.SmithWaterman(b2c, table)(tape, device=CPU)
+    assert calls == [tape.total_bytes + 1]
+    tsz.NeedlemanWunsch(b2c, 2 * table)(tape, device=CPU)  # same classes: memo hit
+    other = b2c.copy()
+    other[65] = 31
+    tsz.NeedlemanWunsch(other, table)(tape, device=CPU)
+    assert len(calls) == 2
+    mapped = tsim._class_mapped_tape(tsim.device_tape(tape, CPU.device), b2c)
+    assert mapped is tsim._class_mapped_tape(tsim.device_tape(tape, CPU.device), b2c)
+    assert mapped.data[:-1].tolist() == b2c[tape.data].tolist()

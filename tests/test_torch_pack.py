@@ -11,10 +11,16 @@ import jax.numpy as jnp  # noqa: E402
 
 from stringzilla_tpu.ops import pack_device as jax_pack  # noqa: E402
 from stringzilla_tpu.ops.tape import Tape as JaxTape  # noqa: E402
-from stringzilla_tpu_torch.ops.pack_device import device_tape, pack_chars  # noqa: E402
+from stringzilla_tpu_torch.ops.pack_device import DeviceTape, device_tape, pack_chars  # noqa: E402
 from stringzilla_tpu_torch.ops.tape import Tape, dyadic_bucket, ladder, round_up  # noqa: E402
 
 CPU = torch.device("cpu")
+
+
+def _rng():
+    """A generator of this file's own: the tests draw the same data in any
+    order and leave the session ``rng``, which other files share, as it is."""
+    return np.random.default_rng(42)
 
 
 def _tape_arrays(rng, count, row_len):
@@ -74,3 +80,34 @@ def test_tape_helpers_match_jax():
         assert dyadic_bucket(n) == jax_tape.dyadic_bucket(n)
         assert ladder(n) == jax_tape.ladder(n)
         assert round_up(n, 32) == jax_tape.round_up(n, 32)
+
+
+@pytest.mark.parametrize("row_len", [15, 32, 135])
+def test_pack_chars_shift_matches_jax(row_len):
+    """``shift`` prepends the zero row of the column DP's query layout."""
+    rng = _rng()
+    data, offsets = _tape_arrays(rng, 30, row_len)
+    idx = rng.permutation(30)[:21]
+    dt = device_tape(Tape(data, offsets), CPU)
+    offs, lens = dt.bucket_arrays(idx)
+    got = pack_chars(dt.data, offs, lens, row_len=row_len, transpose=True,
+                     fill=0, shift=True).numpy()
+    jdt = jax_pack.DeviceTape(JaxTape(data, offsets))
+    joffs, jlens = jdt.bucket_arrays(idx, len(idx))
+    want = np.asarray(jax_pack.pack_chars(
+        jdt.data, joffs, jlens, jnp.zeros(256, jnp.int32), row_len=row_len,
+        transpose=True, fill=0, shift=True))
+    assert got.shape == (row_len + 1, len(idx)) and (got[0] == 0).all()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_device_tape_from_a_device_blob():
+    """A tape over an already-mapped blob keeps the source's bounds."""
+    tape = Tape.from_strings([b"abc", b"", b"de"])
+    dt = device_tape(tape, CPU)
+    mapped = DeviceTape(data=dt.data + 1, starts=dt.starts, lengths=dt.lengths)
+    assert mapped.device == CPU and len(mapped) == 3
+    offs, lens = mapped.bucket_arrays(np.array([2, 0]))
+    block = pack_chars(mapped.data, offs, lens, row_len=4, transpose=False, fill=-1)
+    assert block.tolist() == [[ord("d") + 1, ord("e") + 1, -1, -1],
+                              [ord("a") + 1, ord("b") + 1, ord("c") + 1, -1]]
