@@ -21,6 +21,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wrong-sign costs; ``ops.memory.lookup_transform`` against
    ``lut[x.long()]`` at lengths 0, 1, 15, 16, 17 and 2**24 + 3, and on a
    buffer that is not 16-byte aligned. Exact equality.
+3c. The same for the long-pair kernels: ``ops.wavefront.wavefront_batch``
+   against ``wavefront_reference`` in all 16 configurations, each with
+   costs of both signs, on batches of pairs from 1 x 1 to 4097 x 90 (m = 1,
+   n = 1, m != n both ways, lengths at 31-33 and 63-65 around the 32 x 64
+   tile, class ids 0-39 of which >= 32 clamp), two configurations also with
+   pairs of ~20,000 chars, and one batch under a frontier cap that splits
+   it into groups (more launches than whole); ``band_batch`` against
+   ``band_reference`` (distance, status, last rung, band cells walked) with
+   first rungs of 2 and 64 on near-duplicates of 1-20,000 chars and
+   unrelated pairs, one over the widest band and one with |m - n| over it;
+   then ``levenshtein_batch`` on the same pairs against Wagner-Fischer.
+   Exact equality.
 4. Main path, unit costs: ``LevenshteinDistances()`` through the default
    scope on the ``bench.py`` workload (128 x 32768 lowercase lines, lengths
    N(100, 12.5) clipped to [8, 128], seed ``STRINGWARS_SEED`` = 42) and on
@@ -43,7 +55,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    pairs. Then the same timings, and the LUT kernel's at the protein
    candidates' blob size beside one ``lut[x.long()]`` call.
 
-Phases 4 and 4b also profile one engine call of each workload with
+4c. Main path, long pairs: ``LevenshteinDistances()`` on
+   ``benches/bench_all.py::bench_wavefront``'s pair (100,000 lowercase
+   chars, b = a with 500 positions flipped by ``^= 1``, seed 42), which
+   takes the band kernel, then ``NeedlemanWunschScores`` on long reads
+   (8 x 8 DNA reads of 5,000-15,000 bases, seed 44, half the candidates
+   copies of a query with ~1% substitutions and indels, plus two ~100-base
+   reads a side; classes A, C, G, T with +2 on the diagonal and -3
+   elsewhere, affine gaps -7/-2), which takes the flat kernel. Counts are
+   reset before these two calls and read after; the band, flat, column-DP
+   and byte-LUT kernels must all have launched. Each long pair must equal
+   its kernel's plain version on the card; the long pair's distance must be
+   500; sampled reads must equal ``tests/oracles.py``'s Gotoh DP (the two
+   smallest short x long pairs and the short x short ones) and the numpy
+   Gotoh DP (a long x long pair). Times three rows: the kernel alone, the
+   engine up to its device result and the engine with the host pull, beside
+   the plain version; the band's bound counts the band cells it walked, and
+   the flat kernel is timed on the long pair beside it.
+
+Phases 4, 4b and 4c also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it.
 
 Prints the card's name and power limit and one JSON line of per-kernel
@@ -69,6 +99,16 @@ HEADLINE = (128, 32768)
 LONG = (16, 2048)
 PROTEINS = (16, 512)
 LINES = (64, 4096)
+LONG_PAIR = 100_000  # bench_wavefront's pair
+READS = (8, 8)  # long reads, lengths uniform in READ_LENGTHS
+READ_LENGTHS = (5000, 15001)
+# Pairs of ~20,000 chars in phase 3c, m != n both ways
+WAVEFRONT_BIG = [(20000, 19000), (15000, 20011)]
+# Band pairs of phase 3c: near-duplicates (length, edit rate) and unrelated
+# pairs (m, n), of which 5000 x 4800 is over the widest band and 3000 x 10
+# has |m - n| over it
+BAND_NEAR = [(1, 0.0), (2, 0.5), (100, 0.03), (4097, 0.01), (20000, 0.003), (19000, 0.015)]
+BAND_FAR = [(1, 1), (1, 40), (300, 250), (5000, 4800), (3000, 10)]
 
 # The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
 # multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused
@@ -633,8 +673,272 @@ def _dp_main_path(dev, sync, report):
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
 
+def _wf_pairs(rng, shapes, lo, hi, dev):
+    """Pairs of the given shapes, chars drawn from [lo, hi), end to end in
+    one int32 device tensor; b is a mutated copy of a on every other pair.
+    Returns the tensor and a_off, a_len, b_off, b_len."""
+    import torch
+
+    parts, cols = [], []
+    pos = 0
+    for k, (m, n) in enumerate(shapes):
+        a, b = rng.integers(lo, hi, m), rng.integers(lo, hi, n)
+        if k % 2 == 0:
+            kk = min(m, n)
+            b[:kk] = np.where(rng.random(kk) < 0.8, a[:kk], b[:kk])
+        parts += [a, b]
+        cols.append((pos, m, pos + m, n))
+        pos += m + n
+    chars = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
+    return (chars, *np.array(cols, np.int64).T)
+
+
+def _check_wavefront_kernel(dev, sync, max_err):
+    """Phase 3c: the flat wavefront in all 16 configurations, with costs of
+    both signs, against its plain version."""
+    import torch
+    from stringzilla_tpu_torch.ops import wavefront as wf_mod
+    from stringzilla_tpu_torch.ops.wavefront import (config_costs, wavefront_batch,
+                                                     wavefront_reference)
+
+    rng = np.random.default_rng(SEED + 5)
+    table = torch.from_numpy(rng.integers(-9, 10, (32, 32)).astype(np.int32)).to(dev)
+    shapes = [(1, 1), (1, 300), (300, 1), (31, 63), (32, 64), (33, 65), (63, 33),
+              (64, 32), (65, 31), (700, 2000), (2500, 1200), (4097, 90)]
+    batches = {  # class ids 0-39 (>= 32 clamp to 31); raw chars 0-3
+        True: _wf_pairs(rng, shapes, 0, 40, dev), False: _wf_pairs(rng, shapes, 0, 4, dev)}
+    err = 0
+    for k in (0, 1):  # both signs of every cost
+        for c, cfg in enumerate(_dp_configs(k)):
+            args = batches[cfg.uses_classes]
+            if k == 0 and c in (0, 15):  # min-global-linear-uniform, max-local-affine-classes
+                args = _wf_pairs(rng, shapes + WAVEFRONT_BIG, 0, 40 if cfg.uses_classes else 4, dev)
+            kw = config_costs(cfg, table)
+            got = wavefront_batch(*args, **kw)
+            want = wavefront_reference(*args, **kw)
+            sync()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            _check(torch.equal(got, want), f"wavefront kernel != plain version in {cfg}")
+        print(f"[kernel] wavefront_flat, costs set {k}: 16 configurations exact on "
+              f"{len(shapes)} pairs of 1-4097 chars, {len(WAVEFRONT_BIG)} more of "
+              f"~{WAVEFRONT_BIG[0][0]} in two")
+    # A frontier cap below the batch's need splits it into groups, each its
+    # own run of launches: more launches than the batch takes whole.
+    args = batches[True]
+    kw = config_costs(cfg, table)
+    counts = wf_mod.KERNEL_LAUNCHES
+    before = counts["wavefront_flat"]
+    wavefront_batch(*args, **kw)
+    whole = counts["wavefront_flat"] - before
+    cap = wf_mod.SCRATCH_CAP_BYTES
+    try:
+        wf_mod.SCRATCH_CAP_BYTES = 4 * 2000
+        before = counts["wavefront_flat"]
+        got = wavefront_batch(*args, **kw)
+        split = counts["wavefront_flat"] - before
+    finally:
+        wf_mod.SCRATCH_CAP_BYTES = cap
+    want = wavefront_reference(*args, **kw)
+    sync()
+    _check(split > whole and torch.equal(got, want),
+           f"wavefront kernel under a frontier cap ({split} launches, {whole} whole) "
+           f"!= plain version")
+    print(f"[kernel] wavefront_flat under a 2,000-word frontier cap: {split} launches "
+          f"against {whole} whole, exact")
+    max_err["wavefront_flat"] = err
+
+
+def _check_band_kernel(dev, sync, max_err):
+    """Phase 3c, band tier: the band kernel against its plain version with
+    tiny and default first rungs, then ``levenshtein_batch`` (band, flat for
+    what it does not certify) against Wagner-Fischer."""
+    import torch
+    from stringzilla_tpu_torch.ops.wavefront import (BAND_KMAX, band_batch, band_reference,
+                                                     levenshtein_batch)
+
+    rng = np.random.default_rng(SEED + 6)
+    letters = np.arange(4, dtype=np.uint8)
+    strings = []
+    for m, rate in BAND_NEAR:  # near-duplicates: ~rate edits a char
+        a = rng.choice(letters, m)
+        strings += [a, _mutate(rng, a, letters, rate)]
+    for m, n in BAND_FAR:  # unrelated pairs
+        strings += [rng.choice(letters, m), rng.choice(letters, n)]
+    lens = np.array([len(x) for x in strings])
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    chars = torch.from_numpy(np.concatenate(strings).astype(np.int32)).to(dev)
+    cols = (chars, offs[0::2], lens[0::2], offs[1::2], lens[1::2])
+    err = 0
+    for k0 in (2, 64):
+        got = band_batch(*cols, k0)
+        want = band_reference(*cols, k0)
+        sync()
+        err = max(err, int((got - want).abs().max()))
+        _check(torch.equal(got, want), f"band kernel != plain version with k0 = {k0}")
+        status = want[:, 1].tolist()
+        _check(1 in status and 2 in status, f"band statuses {status}: want 1 and 2")
+        print(f"[kernel] wavefront_band, k0 = {k0}: exact on {len(lens) // 2} pairs of "
+              f"1-{lens.max()} chars (status {status}, last k {want[:, 2].tolist()}, "
+              f"cells {want[:, 3].tolist()})")
+    dist = levenshtein_batch(*cols).cpu().tolist()
+    wf = [_wagner_fischer(strings[2 * p].tobytes(), strings[2 * p + 1].tobytes())
+          for p in range(len(dist))]
+    _check(dist == wf, f"levenshtein_batch {dist} != Wagner-Fischer {wf}")
+    print(f"[kernel] levenshtein_batch (band up to k = {BAND_KMAX}, then flat) equals "
+          f"Wagner-Fischer on every pair")
+    max_err["wavefront_band"] = err
+
+
+def _mutate(rng, src, alphabet, rate):
+    """A copy of ``src`` with substitutions, deletions and insertions, each
+    at ``rate / 3`` a position."""
+    r = rng.random(len(src))
+    x = src.copy()
+    sub = r < rate / 3
+    x[sub] = rng.choice(alphabet, int(sub.sum()))
+    times = np.where(r < 2 * rate / 3, np.where(sub, 1, 0), np.where(r < rate, 2, 1))
+    y = np.repeat(x, times)
+    inserted = np.cumsum(times)[times == 2] - 1
+    y[inserted] = rng.choice(alphabet, len(inserted))
+    return y
+
+
+def _long_reads(rng):
+    """8 x 8 DNA reads of 5,000-15,000 bases, half the candidates mutated
+    copies of a query at ~1% edits, then two ~100-base reads a side."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lengths = lambda k: rng.integers(*READ_LENGTHS, k)
+    qs = [rng.choice(acgt, int(n)) for n in lengths(READS[0])]
+    cs = [_mutate(rng, qs[j % READS[0]], acgt, 0.01) if j % 2 == 0
+          else rng.choice(acgt, int(n)) for j, n in enumerate(lengths(READS[1]))]
+    qs += [rng.choice(acgt, int(n)) for n in rng.integers(90, 111, 2)]
+    cs += [rng.choice(acgt, int(n)) for n in rng.integers(90, 111, 2)]
+    return [q.tobytes() for q in qs], [c.tobytes() for c in cs]
+
+
+def _wavefront_main_path(dev, sync, report):
+    """Phase 4c: pairs over 4096 bytes through the engines."""
+    import torch
+    from stringzilla_tpu_torch import LevenshteinDistances, NeedlemanWunschScores
+    from stringzilla_tpu_torch.ops import memory as memory_mod
+    from stringzilla_tpu_torch.ops import similarity_dp as dp_mod
+    from stringzilla_tpu_torch.ops import wavefront as wf_mod
+    from stringzilla_tpu_torch.ops.wavefront import (band_batch, band_reference, config_costs,
+                                                     wavefront_batch, wavefront_reference)
+    from tests.oracles import score_affine
+
+    rng = np.random.default_rng(SEED)  # bench_wavefront's draws, in its order
+    a = rng.integers(97, 123, LONG_PAIR).astype(np.uint8)
+    b = a.copy()
+    b[rng.choice(LONG_PAIR, 500, replace=False)] ^= 1
+    pair = ([a.tobytes()], [b.tobytes()])
+    reads = _long_reads(np.random.default_rng(SEED + 2))
+    b2c = np.zeros(256, np.uint8)
+    b2c[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    dna = np.full((32, 32), -3, np.int32)
+    np.fill_diagonal(dna, 2)
+    runs = [  # name, engine, inputs
+        ("long pair", LevenshteinDistances(), pair),
+        ("long reads", NeedlemanWunschScores(b2c, dna, open=-7, extend=-2), reads),
+    ]
+    counters = (wf_mod.KERNEL_LAUNCHES, dp_mod.KERNEL_LAUNCHES, memory_mod.KERNEL_LAUNCHES)
+    sync()
+    _reset(*counters)
+    results = [engine(*inputs) for _, engine, inputs in runs]
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    print(f"[engine] launches on the long-pair main path: {launches}")
+    for k, n in launches.items():
+        _check(n > 0, f"{k} was not launched on the main path")
+
+    for (name, engine, (qs, cs)), res in zip(runs, results):
+        cfg = engine.config
+        _check(res.shape == (len(qs), len(cs)) and np.isfinite(res).all(),
+               f"{name}: result {res.dtype} {res.shape}")
+        # every long pair through the kernel alone and the plain version,
+        # from class-mapped chars built on the host
+        to_ids = (lambda s: b2c[np.frombuffer(s, np.uint8)]) if cfg.uses_classes \
+            else (lambda s: np.frombuffer(s, np.uint8))
+        ql = np.array([len(q) for q in qs])
+        cl = np.array([len(c) for c in cs])
+        qi, cj = np.nonzero((ql[:, None] > 4096) | (cl[None, :] > 4096))
+        strings = [to_ids(q) for q in qs] + [to_ids(c) for c in cs]
+        offs = np.concatenate([[0], np.cumsum([len(x) for x in strings])[:-1]])
+        chars = torch.from_numpy(np.concatenate(strings).astype(np.int32)).to(dev)
+        packed = (chars, offs[qi], ql[qi], offs[len(qs) + cj], cl[cj])
+        kw = config_costs(cfg, torch.from_numpy(dna).to(dev))
+        band = name == "long pair"  # unit costs: the band kernel
+        kernel = "wavefront_band" if band else "wavefront_flat"
+        call = (lambda: band_batch(*packed)) if band else (lambda: wavefront_batch(*packed, **kw))
+        alone = call()
+        t0 = time.perf_counter()
+        plain = band_reference(*packed) if band else wavefront_reference(*packed, **kw)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((alone.long() - plain.long()).abs().max())
+        _check(torch.equal(alone, plain), f"{name}: kernel != plain version")
+        scores = plain
+        if band:
+            scores = plain[:, 0]
+            _check(bool((plain[:, 1] == 1).all()), f"{name}: band status {plain[:, 1]}")
+        _check(np.array_equal(res.astype(np.int64)[qi, cj], scores.cpu().numpy()),
+               f"{name}: engine result != plain version on the card")
+        if band:
+            _check(int(res[0, 0]) == 500, f"{name}: distance {res[0, 0]} != 500 flips")
+            checked = (f"and the 500 flips (band: last k {int(plain[0, 2])}, "
+                       f"{int(plain[0, 3])} band cells walked)")
+        else:
+            sub = lambda x, y: int(dna[b2c[x], b2c[y]])
+            short_long = sorted(((i, j) for i, j in zip(qi, cj) if min(ql[i], cl[j]) < 200),
+                                key=lambda ij: ql[ij[0]] * cl[ij[1]])[:2]
+            for i, j in short_long + [(i, j) for i in range(len(qs)) for j in range(len(cs))
+                                      if max(ql[i], cl[j]) < 200]:
+                _check(int(res[i, j]) == score_affine(qs[i], cs[j], sub, -7, -2),
+                       f"{name}: pair ({i}, {j}) != the Gotoh oracle")
+            qa, cb = np.frombuffer(qs[0], np.uint8), np.frombuffer(cs[0], np.uint8)
+            padded = np.zeros((33, 33), np.int64)
+            padded[:32, :32] = dna
+            _check(int(res[0, 0]) == _gotoh(qa, cb, lambda r: padded[b2c[qa[r - 1]], b2c[cb]],
+                                            -7, -2, True, False),
+                   f"{name}: pair (0, 0) != the numpy Gotoh DP")
+            checked = "and the Gotoh oracle on 2 short x long and the short x short pairs"
+        print(f"[engine] {name}: {len(qs)}x{len(cs)}, {len(qi)} long pairs, equal the "
+              f"plain version {checked}")
+
+        # GCUPS count the pairs' whole matrices; the band's bound counts
+        # only the band cells its rungs walked on this data
+        cells = float((ql[qi] * cl[cj]).sum())
+        work = float(plain[:, 3].sum()) if band else cells
+        nbytes = 4.0 * (ql[qi].sum() + cl[cj].sum()) + (32.0 if band else 4.0) * len(qi)
+        engine_runs = 3
+        t0 = time.perf_counter()
+        for _ in range(engine_runs):
+            engine._device_scores(qs, cs)
+            sync()
+        device_s = (time.perf_counter() - t0) / engine_runs
+        t0 = time.perf_counter()
+        for _ in range(engine_runs):
+            engine(qs, cs)
+        engine_s = (time.perf_counter() - t0) / engine_runs
+        _profile(name, lambda: engine(qs, cs), sync)
+        kernel_ms = _time_ms(call, 5, sync)
+        bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * work, nbytes)
+        report[kernel] = dict(
+            launches=launches[kernel], ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, max_abs_err=err)
+        print(f"[perf] {name} cells={cells:.0f} kernel-cells={work:.0f}: {kernel} "
+              f"{kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; engine to device "
+              f"result {device_s * 1e3:.3f} ms = {cells / device_s / 1e9:.3f} GCUPS; "
+              f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
+              f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        if band:  # the flat kernel on the same pair, for comparison
+            flat_ms = _time_ms(lambda: wavefront_batch(*packed), 3, sync)
+            print(f"[perf] {name}: wavefront_flat on the same pair {flat_ms:.4f} ms = "
+                  f"{cells / flat_ms / 1e6:.3f} GCUPS, {flat_ms / kernel_ms:.2f}x the band's time")
+
+
 def run(dev) -> list:
-    """Phases 3-4b on ``dev``; returns each kernel's report entry."""
+    """Phases 3-4c on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
@@ -642,19 +946,26 @@ def run(dev) -> list:
     _check_myers_kernel(dev, sync, max_err)
     _check_dp_kernel(dev, sync, max_err)
     _check_lut_kernel(dev, sync, max_err)
+    _check_wavefront_kernel(dev, sync, max_err)
+    _check_band_kernel(dev, sync, max_err)
     _myers_main_path(dev, sync, report)
     _dp_main_path(dev, sync, report)
+    _wavefront_main_path(dev, sync, report)
     replaces = {
         "myers_tier_a": ("stringzilla_tpu/ops/myers_pallas.py:396", "csrc/myers.cu"),
         "myers_tier_b": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
         "similarity_dp": ("stringzilla_tpu/ops/similarity_pallas.py:78",
                           "csrc/similarity.cu"),
         "byte_lut": ("stringzilla_tpu/ops/memory_pallas.py:34", "csrc/lut.cu"),
+        "wavefront_flat": ("stringzilla_tpu/ops/wavefront_pallas.py:60",
+                           "csrc/wavefront.cu"),
+        "wavefront_band": ("stringzilla_tpu/ops/wavefront_pallas.py:527",
+                           "csrc/wavefront.cu"),
     }
     return [{"name": k, "route": "cuda",
              "source": f"stringzilla_tpu_torch/{src}", "replaces": tpu,
              "launches": report[k]["launches"],
-             "max_abs_err": report[k].get("max_abs_err", max_err[k]),
+             "max_abs_err": max(report[k].get("max_abs_err", 0), max_err[k]),
              "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"],
              "bound_ms": report[k]["bound_ms"], "bound_by": report[k]["bound_by"],
              "library_ms": report[k]["library_ms"]}
@@ -688,10 +999,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-4b: kernels against plain versions, then the main paths ---
+    # -- phases 3-4c: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-4b in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-4c in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

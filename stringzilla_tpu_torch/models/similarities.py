@@ -18,11 +18,17 @@ pulled to the host once. Unit-cost Levenshtein runs on the Myers kernel;
 every other configuration (weighted or affine Levenshtein,
 ``NeedlemanWunschScores``, ``SmithWatermanScores``) on the column-DP kernel,
 with class-cost engines mapping each collection's bytes to classes once
-through the byte-LUT kernel.
+through the byte-LUT kernel. Every pair with a string over 4096 bytes runs
+on the wavefront tier instead (``ops/wavefront.py``), all such pairs of a
+call in one batch: unit costs on the band kernel, with the flat kernel for
+the pairs whose distance is over its widest band, every other
+configuration on the flat kernel.
 
-Ported: byte strings of at most 4096 bytes, on one device. UTF-8 engines and
-longer pairs raise ``NotImplementedError`` naming the ROADMAP item that
-brings them; none computes an approximate answer.
+Ported: byte strings on one device. A long pair that reaches the flat
+kernel may have up to ``MAX_FLAT_CELLS`` diagonal cells
+(``max(m + 1, n)``); beyond that it raises the ``ValueError`` of the JAX
+package's single-device path. UTF-8 engines raise ``NotImplementedError``
+naming their ROADMAP item. None computes an approximate answer.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ..ops.similarity import (AffineGaps, ClassCosts, LinearGaps,
                               SimilarityConfig, UniformCosts)
 from ..ops.similarity_dp import similarity
 from ..ops.tape import Tape, round_up
+from ..ops.wavefront import config_costs, levenshtein_batch, wavefront_batch
 from .device_scope import DeviceScope, default_device_scope
 
 __all__ = [
@@ -50,7 +57,7 @@ __all__ = [
     "SmithWaterman",
 ]
 
-_LONG_THRESHOLD = 4096  # longer pairs wait for the wavefront tier
+_LONG_THRESHOLD = 4096  # a pair with a longer string runs on the wavefront tier
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -82,6 +89,13 @@ def _as_int_arrays(items) -> list[np.ndarray]:
         else:
             out.append(np.frombuffer(s, dtype=np.uint8).astype(np.int32))
     return out
+
+
+def _offsets(lens: np.ndarray) -> np.ndarray:
+    """Where each string starts when the strings are laid end to end."""
+    offs = np.zeros(len(lens), dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    return offs
 
 
 def _dyadic(lengths: np.ndarray, minimum: int = 8) -> np.ndarray:
@@ -130,6 +144,13 @@ class _HostCollection:
         lens = self.lens[idx].astype(np.int32)
         return (torch.from_numpy(block).to(self._device),
                 torch.from_numpy(lens).to(self._device))
+
+    def chars(self, idx):
+        """The int32 chars of strings ``idx``, end to end in one device
+        tensor, and where each starts in it."""
+        flat = np.concatenate([np.zeros(0, np.int32)] + [self._arrs[i] for i in idx])
+        return (torch.from_numpy(flat.astype(np.int32)).to(self._device),
+                _offsets(self.lens[idx]))
 
 
 def _class_mapped_tape(dt: DeviceTape, b2c) -> DeviceTape:
@@ -183,6 +204,20 @@ class _DeviceCollection:
                            row_len=rows - int(shift), transpose=True,
                            fill=fill, shift=shift), lens)
 
+    def chars(self, idx):
+        """The int32 chars of strings ``idx`` (class ids for a class-cost
+        engine), end to end in one device tensor gathered from the blob,
+        and where each starts in it."""
+        lens = self.lens[idx]
+        offs = _offsets(lens)
+        data = self._packsrc.data
+        total = int(lens.sum())
+        base = torch.from_numpy(self._dt.starts[idx] - offs).to(data.device)
+        pos = (torch.repeat_interleave(base, torch.from_numpy(lens).to(data.device),
+                                       output_size=total)
+               + torch.arange(total, device=data.device))
+        return data[pos].to(torch.int32), offs
+
 
 class _CrossProductEngine:
     """Shared host loop for all-pairs scoring."""
@@ -213,16 +248,87 @@ class _CrossProductEngine:
         except _HostFallback:
             return _HostCollection(items, device, self._b2c)
 
+    def _score_long_pairs(self, qc, cc, q_long, c_long, result) -> None:
+        """Every pair touching a string over ``_LONG_THRESHOLD`` bytes, in
+        one batch, scattered into ``result`` (the JAX ``_score_long_pairs``,
+        which runs them one launch per pair): unit-cost pairs through the
+        band tier, the rest through the flat wavefront kernel. Class-cost
+        engines pass the 32x32 table over the collections' class-mapped
+        chars."""
+        cfg = self._cfg
+        qi, cj = np.nonzero(q_long[:, None] | c_long[None, :])
+        q_at = np.zeros(len(qc), np.int64)
+        c_at = q_at if cc is qc else np.zeros(len(cc), np.int64)
+        if cc is qc:
+            used = np.union1d(qi, cj)
+            chars, q_at[used] = qc.chars(used)
+        else:
+            q_used, c_used = np.unique(qi), np.unique(cj)
+            q_chars, q_at[q_used] = qc.chars(q_used)
+            c_chars, c_at[c_used] = cc.chars(c_used)
+            c_at += q_chars.numel()
+            chars = torch.cat([q_chars, c_chars])
+        pairs = (chars, q_at[qi], qc.lens[qi], c_at[cj], cc.lens[cj])
+        if self._is_unit_cost:
+            scores = levenshtein_batch(*pairs)
+        else:
+            table = cfg.costs.table_np() if cfg.uses_classes else None
+            scores = wavefront_batch(*pairs, **config_costs(cfg, table))
+        dev = result.device
+        result[torch.from_numpy(qi).to(dev), torch.from_numpy(cj).to(dev)] = scores
+
     @property
     def config(self) -> SimilarityConfig:
         return self._cfg
 
-    def __call__(self, queries, candidates=None, device: DeviceScope | None = None,
-                 out: np.ndarray | None = None) -> np.ndarray:
+    def _collections(self, queries, candidates, device: DeviceScope | None):
         dev = (device or default_device_scope()).device
         qc = self._collection(queries, dev)
-        cc = qc if candidates is None else self._collection(candidates, dev)
+        return dev, qc, qc if candidates is None else self._collection(candidates, dev)
 
+    def _scores(self, qc, cc, dev: torch.device) -> torch.Tensor:
+        """Every pair's score as one ``(nq, nc)`` int32 tensor on ``dev``."""
+        nq, nc = len(qc), len(cc)
+        result = torch.empty((nq, nc), dtype=torch.int32, device=dev)
+        if nq == 0 or nc == 0:
+            return result
+        q_long, c_long = qc.lens > _LONG_THRESHOLD, cc.lens > _LONG_THRESHOLD
+        if q_long.any() or c_long.any():
+            self._score_long_pairs(qc, cc, q_long, c_long, result)
+        # The rest in dense blocks of short strings: a long string's dyadic
+        # bucket is above the threshold. Myers reads plain query chars
+        # padded with -1 (never a byte); the column DP reads the +1-shifted
+        # layout, row 0 and padding zero.
+        unit = self._is_unit_cost
+        table = (None if unit or not self._cfg.uses_classes else
+                 torch.from_numpy(self._cfg.costs.table_np()).to(dev))
+        q_blocks = [(torch.from_numpy(q_idx).to(dev)[:, None],
+                     qc.pack(q_idx, round_up(q_bucket, 32), fill=-1) if unit
+                     else qc.pack(q_idx, round_up(q_bucket + 1, 8), fill=0,
+                                  shift=True))
+                    for q_bucket, q_idx in _group_dyadic(qc.lens).items()
+                    if q_bucket <= _LONG_THRESHOLD]
+        for c_bucket, c_idx in _group_dyadic(cc.lens).items():
+            if c_bucket > _LONG_THRESHOLD or not q_blocks:
+                continue
+            block_j, lens_j = cc.pack(c_idx, c_bucket, fill=0)
+            c_rows = torch.from_numpy(c_idx).to(dev)[None, :]
+            for q_rows, (q_t, qlens) in q_blocks:
+                args = (q_t, qlens.view(-1, 1), block_j, lens_j.view(1, -1))
+                result[q_rows, c_rows] = (myers(*args) if unit else
+                                          similarity(*args, self._cfg, table))
+        return result
+
+    def _device_scores(self, queries, candidates=None,
+                       device: DeviceScope | None = None) -> torch.Tensor:
+        """The engine call without the host pull: the int32 scores on the
+        scope's device, before the cast to ``result_dtype``."""
+        dev, qc, cc = self._collections(queries, candidates, device)
+        return self._scores(qc, cc, dev)
+
+    def __call__(self, queries, candidates=None, device: DeviceScope | None = None,
+                 out: np.ndarray | None = None) -> np.ndarray:
+        dev, qc, cc = self._collections(queries, candidates, device)
         nq, nc = len(qc), len(cc)
         if out is None:
             out = np.zeros((nq, nc), dtype=self.result_dtype)
@@ -230,28 +336,7 @@ class _CrossProductEngine:
             raise ValueError(f"out must have shape {(nq, nc)}, got {out.shape}")
         if nq == 0 or nc == 0:
             return out
-        if max(int(qc.lens.max()), int(cc.lens.max())) > _LONG_THRESHOLD:
-            raise _not_ported(f"a pair longer than {_LONG_THRESHOLD} bytes",
-                              "long-pair tier")
-
-        # Myers reads plain query chars padded with -1 (never a byte); the
-        # column DP reads the +1-shifted layout, row 0 and padding zero.
-        unit = self._is_unit_cost
-        table = (None if unit or not self._cfg.uses_classes else
-                 torch.from_numpy(self._cfg.costs.table_np()).to(dev))
-        result = torch.empty((nq, nc), dtype=torch.int32, device=dev)
-        q_blocks = [(torch.from_numpy(q_idx).to(dev)[:, None],
-                     qc.pack(q_idx, round_up(q_bucket, 32), fill=-1) if unit
-                     else qc.pack(q_idx, round_up(q_bucket + 1, 8), fill=0,
-                                  shift=True))
-                    for q_bucket, q_idx in _group_dyadic(qc.lens).items()]
-        for c_bucket, c_idx in _group_dyadic(cc.lens).items():
-            block_j, lens_j = cc.pack(c_idx, c_bucket, fill=0)
-            c_rows = torch.from_numpy(c_idx).to(dev)[None, :]
-            for q_rows, (q_t, qlens) in q_blocks:
-                args = (q_t, qlens.view(-1, 1), block_j, lens_j.view(1, -1))
-                result[q_rows, c_rows] = (myers(*args) if unit else
-                                          similarity(*args, self._cfg, table))
+        result = self._scores(qc, cc, dev)
         # numpy's assignment casts as .astype(result_dtype) does, with one
         # copy: a negative score wraps in uint64 as in the JAX package.
         out[...] = result.cpu().numpy()
@@ -268,7 +353,8 @@ class LevenshteinDistances(_CrossProductEngine):
     """Batched byte-level edit distances (reference engine
     ``szs::levenshtein_distances``, ``serial.hpp:3709-3760``; Python type
     ``python/stringzillas.c:388-470``). Unit costs run on the Myers
-    kernel, any other costs on the column DP."""
+    kernel, any other costs on the column DP, and a pair with a string over
+    4096 bytes on the wavefront tier (unit costs on its band kernel)."""
 
     result_dtype = np.uint64
 

@@ -1,0 +1,492 @@
+"""Anti-diagonal wavefront DP scores of long pairs — the long-pair tier.
+
+Counterpart of ``stringzilla_tpu/ops/wavefront_pallas.py``'s
+``wavefront_score``, ``levenshtein_long_pair`` and ``MAX_FLAT_CELLS``. The
+lane-packed kernels score many short pairs at once; a pair with a string
+over 4096 bytes instead spreads its own DP matrix over the card.
+
+The flat tier has the semantics of the JAX flat kernel ``_kernel``, for all
+16 configurations (min/max, global/local, uniform costs or a 32x32 class
+table, linear or Gotoh affine gaps):
+
+* row 0 and column 0 hold ``boundary(k)``: 0 when local, ``gap * k`` for
+  linear gaps, ``open + extend * (k - 1)`` for affine ones; the gap
+  matrices' border is ``boundary(k) + open + extend``;
+* class ids are clamped to [0, 31] (an id >= 32 costs as class 31);
+* a global score is cell (m, n); a local one is ``opt(0, every interior
+  cell)``, with cells clamped at 0;
+* an empty string never reaches the kernel: the score is the other
+  string's gap run (0 when local).
+
+The band tier is the JAX band kernel ``_band_kernel``: the exact unit-cost
+Levenshtein distance by Ukkonen band doubling. A rung of half-width ``k``
+walks only the cells with ``|i - j| <= k``, stops once a row holds no cell
+``<= k``, and certifies ``D[m][n] <= k``; otherwise the next rung is priced
+from the row where it stopped, up to ``BAND_KMAX``. A pair whose distance
+is over ``BAND_KMAX`` goes to the flat tier.
+
+Entry points:
+
+    wavefront_score(a, b, match=0, mismatch=1, gap=1, objective="min",
+                    locality="global", table=None, extend=None, *, device=None)
+        -> int
+    levenshtein_long_pair(a, b, k0=64, *, device=None) -> int
+    wavefront_batch(chars, a_off, a_len, b_off, b_len, **costs)
+        -> (n_pairs,) int32 tensor on chars.device
+    levenshtein_batch(chars, a_off, a_len, b_off, b_len, k0=64)
+        -> (n_pairs,) int32 tensor on chars.device
+    band_batch(chars, a_off, a_len, b_off, b_len, k0=64)
+        -> (n_pairs, 4) int64 tensor on chars.device
+
+The batched entries take pairs whose chars lie in one int32 tensor (offsets
+and lengths are host integer arrays). On CUDA tensors they run the
+hand-written Hopper kernels of ``csrc/wavefront.cu``, on CPU tensors the
+plain PyTorch versions ``wavefront_reference`` (the JAX kernel's
+anti-diagonal recurrence, every pair of the batch at once) and
+``band_reference`` (the band kernel's ladder, a pair and a row at a
+time).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..utils import cuda_build, platform
+
+__all__ = ["wavefront_score", "wavefront_batch", "wavefront_reference",
+           "levenshtein_long_pair", "levenshtein_batch", "band_batch",
+           "band_reference", "config_costs", "MAX_FLAT_CELLS", "BAND_KMAX",
+           "KERNEL_LAUNCHES", "SCRATCH_CAP_BYTES"]
+
+BIG = 1 << 28  # the JAX kernel's identity; masked cells take it
+# Diagonal cells of one pair, max(m + 1, n): the JAX kernel's VMEM bound,
+# kept so both packages accept and refuse the same pairs.
+MAX_FLAT_CELLS = 1 << 19
+# The widest band: the JAX band kernel's half-width for pairs over 4096
+# bytes, (32 * 128 - 2) // 2. The port uses it at every length.
+BAND_KMAX = 2047
+_CLASSES = 32
+
+# Launches of the CUDA kernels, counted from what the C side launched: one
+# per tile diagonal of each group of pairs (flat), one per call (band).
+KERNEL_LAUNCHES = {"wavefront_flat": 0, "wavefront_band": 0}
+
+# Frontier buffers of one group of pairs; a call whose pairs need more is
+# split into several groups, each its own run of launches.
+SCRATCH_CAP_BYTES = 256 << 20
+
+
+def config_costs(cfg, table=None) -> dict:
+    """The cost arguments of ``wavefront_batch`` for an engine's
+    ``SimilarityConfig``, as the JAX engine's long-pair tier passes them:
+    open and extend for affine gaps, the gap for linear ones, ``table`` for
+    class costs, match and mismatch for uniform ones."""
+    kw = dict(objective=cfg.objective, locality=cfg.locality)
+    if cfg.is_affine:
+        kw.update(gap=cfg.gaps.open, extend=cfg.gaps.extend)
+    else:
+        kw.update(gap=cfg.gaps.open_or_extend)
+    if cfg.uses_classes:
+        kw["table"] = table
+    else:
+        kw.update(match=cfg.costs.match, mismatch=cfg.costs.mismatch)
+    return kw
+
+
+def _check_costs(objective, locality, table):
+    if objective not in ("min", "max") or locality not in ("global", "local"):
+        raise ValueError(f"unknown objective/locality {objective!r}/{locality!r}")
+    if table is None:
+        return None
+    t = torch.as_tensor(table).to("cpu", torch.int64)
+    if tuple(t.shape) != (_CLASSES, _CLASSES):
+        raise ValueError(f"table must be (32, 32), got {tuple(t.shape)}")
+    if int(t.min()) < -128 or int(t.max()) > 127:
+        raise ValueError("class costs must fit in int8")
+    return t.to(torch.int32)
+
+
+def _empty_score(m: int, n: int, gap: int, extend, locality: str) -> int:
+    """The JAX rule for a pair with an empty string."""
+    if locality == "local":
+        return 0
+    k = m + n
+    if extend is not None:
+        return gap + extend * (k - 1) if k else 0
+    return k * gap
+
+
+def wavefront_batch(chars: torch.Tensor, a_off, a_len, b_off, b_len, *,
+                    match: int = 0, mismatch: int = 1, gap: int = 1,
+                    objective: str = "min", locality: str = "global",
+                    table=None, extend: int | None = None) -> torch.Tensor:
+    """Scores of pairs ``(chars[a_off:a_off+a_len], chars[b_off:b_off+b_len])``
+    as an ``(n_pairs,)`` int32 tensor on ``chars.device``: the Hopper kernel
+    for CUDA tensors, the plain version for CPU ones. ``chars`` holds raw
+    chars, or class ids when ``table`` (32x32 class costs) is given."""
+    return _score(chars, a_off, a_len, b_off, b_len, match, mismatch, gap,
+                  objective, locality, table, extend, plain=False)
+
+
+def wavefront_reference(chars: torch.Tensor, a_off, a_len, b_off, b_len, *,
+                        match: int = 0, mismatch: int = 1, gap: int = 1,
+                        objective: str = "min", locality: str = "global",
+                        table=None, extend: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: the same
+    arguments and results as ``wavefront_batch``."""
+    return _score(chars, a_off, a_len, b_off, b_len, match, mismatch, gap,
+                  objective, locality, table, extend, plain=True)
+
+
+def _columns(chars, a_off, a_len, b_off, b_len):
+    """The pairs' offsets and lengths as int64 numpy columns, checked
+    against ``chars``."""
+    if not isinstance(chars, torch.Tensor) or chars.dtype != torch.int32 or chars.dim() != 1:
+        raise TypeError("chars must be a 1-D int32 tensor")
+    if not chars.is_contiguous():
+        raise ValueError("chars must be contiguous")
+    if chars.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wavefront runs on CUDA or CPU tensors, not {chars.device}")
+    cols = [np.asarray(x, dtype=np.int64).reshape(-1) for x in (a_off, a_len, b_off, b_len)]
+    a_off, a_len, b_off, b_len = cols
+    if len({len(x) for x in cols}) != 1:
+        raise ValueError("a_off, a_len, b_off and b_len must have one length")
+    if len(a_len) and (min(a_off.min(), a_len.min(), b_off.min(), b_len.min()) < 0
+                       or max((a_off + a_len).max(), (b_off + b_len).max()) > chars.numel()):
+        raise ValueError("a pair reaches outside chars")
+    return cols
+
+
+def _score(chars, a_off, a_len, b_off, b_len, match, mismatch, gap, objective,
+           locality, table, extend, plain):
+    table = _check_costs(objective, locality, table)
+    a_off, a_len, b_off, b_len = _columns(chars, a_off, a_len, b_off, b_len)
+    empty = (a_len == 0) | (b_len == 0)
+    flat = np.where(empty, 0, np.maximum(a_len + 1, b_len))
+    if len(flat) and int(flat.max()) > MAX_FLAT_CELLS:
+        raise ValueError(f"pair too long for single-chip wavefront "
+                         f"({int(flat.max())} cells)")
+    dev = chars.device
+    out = np.zeros(len(a_len), np.int64)
+    for p in np.nonzero(empty)[0]:
+        out[p] = _empty_score(int(a_len[p]), int(b_len[p]), gap, extend, locality)
+    result = torch.from_numpy(out.astype(np.int32)).to(dev)
+    live = np.nonzero(~empty)[0]
+    if len(live) == 0:
+        return result
+    args = (chars, a_off[live], a_len[live], b_off[live], b_len[live], match,
+            mismatch, gap, objective, locality,
+            None if table is None else table.to(dev), extend)
+    scores = (_plain(*args) if plain or dev.type == "cpu" else _launch(*args))
+    result[torch.from_numpy(live).to(dev)] = scores
+    return result
+
+
+def _launch(chars, a_off, a_len, b_off, b_len, match, mismatch, gap, objective,
+            locality, table, extend):
+    """Every pair through ``csrc/wavefront.cu``, which cuts the tiles and
+    splits the pairs into groups whose frontiers fit the scratch."""
+    dev = chars.device
+    affine = extend is not None
+    n = len(a_len)
+    pairs = np.ascontiguousarray(np.stack([a_off, a_len, b_off, b_len], axis=1))
+    lib = cuda_build.load()
+    largest = ctypes.c_longlong()
+    total = lib.sz_wavefront_scratch_words(affine, pairs.ctypes.data, n, ctypes.byref(largest))
+    words = max(largest.value, min(total, SCRATCH_CAP_BYTES // 4))
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    records = torch.empty((n, 6), dtype=torch.int64, device=dev)
+    out = torch.zeros(n, dtype=torch.int32, device=dev)  # local bests start at 0
+    launches = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = lib.sz_wavefront(
+            objective == "max", locality == "local", affine, table is not None,
+            gap, extend if affine else 0, match, mismatch, chars.data_ptr(),
+            pairs.ctypes.data, n, records.data_ptr(),
+            None if table is None else table.data_ptr(), scratch.data_ptr(), words,
+            out.data_ptr(), ctypes.byref(launches), torch.cuda.current_stream(dev).cuda_stream)
+    KERNEL_LAUNCHES["wavefront_flat"] += launches.value
+    _raise_on(lib, err, "sz_wavefront")
+    return out
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.sz_cuda_error_string(err).decode()} ({err})")
+
+
+def _plain(chars, a_off, a_len, b_off, b_len, match, mismatch, gap, objective,
+           locality, table, extend):
+    """The JAX kernel's recurrence, every pair at once: diagonal ``d`` holds
+    cells ``(i, d - i)`` at flat index ``i`` of a ``(pairs, max m + 1)``
+    int32 row. Cells outside a pair's matrix take the identity, row 0 and
+    column 0 ``boundary(d)``. A diagonal that the next step reads shifted
+    (``D``, and ``J`` when affine) sits in a buffer behind one identity
+    column, so its cells at ``i - 1`` are a view of the same buffer."""
+    dev = chars.device
+    P = len(a_len)
+    M, N = int(a_len.max()), int(b_len.max())
+    L = M + 1
+    is_min = objective == "min"
+    opt = torch.minimum if is_min else torch.maximum
+    ident = BIG if is_min else -BIG
+    affine = extend is not None
+    local = locality == "local"
+    ext = extend if affine else 0
+
+    def boundary(k: int) -> int:
+        if local:
+            return 0
+        if affine:
+            return gap + ext * (k - 1) if k > 0 else 0
+        return gap * k
+
+    def gather(off, lens, width, fill):
+        j = torch.arange(width, device=dev)
+        lens_t = torch.from_numpy(lens).to(dev)[:, None]
+        pos = torch.from_numpy(off).to(dev)[:, None] + j
+        ok = j < lens_t
+        return torch.where(ok, chars[torch.where(ok, pos, 0)], fill)
+
+    def padded(first):
+        buf = torch.full((P, L + 1), ident, dtype=torch.int32, device=dev)
+        buf[:, 1:] = first
+        return buf
+
+    flat = torch.arange(L, device=dev, dtype=torch.int32)[None, :]
+    m = torch.from_numpy(a_len.astype(np.int32)).to(dev)[:, None]
+    n = torch.from_numpy(b_len.astype(np.int32)).to(dev)[:, None]
+    # qm1[i] = a[i - 1]; -2 pads it (the JAX packing), never a b value of -1
+    qm1 = torch.cat([torch.full((P, 1), -2, dtype=torch.int32, device=dev),
+                     gather(a_off, a_len, M, -2)], dim=1)
+    # T[i] = b[d - 1 - i], or -1 outside b: a slice of b reversed, padded L
+    # each side, starting at L + N - d
+    bpad = torch.full((P, L + N + L), -1, dtype=torch.int32, device=dev)
+    bpad[:, L: L + N] = gather(b_off, b_len, N, -1)
+    bflip = bpad.flip(1)
+    if table is not None:
+        qrow = qm1.clamp(0, _CLASSES - 1) * _CLASSES
+        bflip = bflip.clamp(0, _CLASSES - 1)
+        tab = table.reshape(-1)
+    else:
+        costs = torch.tensor([mismatch, match], dtype=torch.int32, device=dev)
+    ident_t = torch.tensor(ident, dtype=torch.int32, device=dev)
+
+    # diagonals 0 and 1: cell (0, 0) = 0, cells (0, 1) and (1, 0) the border
+    D2 = padded(torch.where(flat == 0, 0, ident))
+    D1 = padded(torch.where(flat <= 1, boundary(1), ident))
+    I1 = torch.where(flat <= 1, boundary(1) + gap + ext, ident).to(torch.int32).expand(P, L)
+    J1 = padded(I1)
+    best = torch.zeros(P, dtype=torch.int32, device=dev)
+    score = torch.zeros(P, dtype=torch.int32, device=dev)
+    ends = {}  # global: step -> the pairs whose cell (m, n) it computes
+    for p, d in enumerate((a_len + b_len).tolist()):
+        ends.setdefault(d, []).append(p)
+    reduce = torch.amin if is_min else torch.amax
+    for d in range(2, int((a_len + b_len).max()) + 1):
+        T = bflip[:, L + N - d: L + N - d + L]
+        sub = tab[qrow + T] if table is not None else costs[(qm1 == T).long()]
+        # D[d-1][i] is D1[:, 1:], D[d-1][i-1] is D1[:, :-1], D[d-2][i-1] is D2[:, :-1]
+        if affine:
+            I_new = opt(D1[:, 1:] + gap, I1 + ext)
+            J_new = opt(D1[:, :-1] + gap, J1[:, :-1] + ext)
+            cand = opt(D2[:, :-1] + sub, opt(I_new, J_new))
+        else:
+            cand = opt(opt(D1[:, 1:] + gap, D1[:, :-1] + gap), D2[:, :-1] + sub)
+        if local:
+            cand = cand.clamp(max=0) if is_min else cand.clamp(min=0)
+        # cells (0, d) and (d, 0); the mask below takes them out of the
+        # pairs whose matrix does not reach them, as every cell outside it
+        cand[:, 0] = boundary(d)
+        if d < L:
+            cand[:, d] = boundary(d)
+        valid = (flat >= (d - n).clamp(min=0)) & (flat <= m.clamp(max=d))
+        D2, D1 = D1, D2  # D2's buffer takes diagonal d
+        torch.where(valid, cand, ident_t, out=D1[:, 1:])
+        if affine:
+            for g in (I_new, J_new):
+                g[:, 0] = boundary(d) + gap + ext
+                if d < L:
+                    g[:, d] = boundary(d) + gap + ext
+            I1 = torch.where(valid, I_new, ident_t)
+            torch.where(valid, J_new, ident_t, out=J1[:, 1:])
+        if local:
+            # the JAX kernel reduces over interior cells only: the border
+            # cells are 0 and the rest the identity, which change nothing
+            best = opt(best, reduce(D1[:, 1:], dim=1))
+        elif d in ends:
+            idx = torch.tensor(ends[d], device=dev)
+            score[idx] = D1[idx, m[idx, 0].long() + 1]
+    return best if local else score
+
+
+def wavefront_score(a, b, match: int = 0, mismatch: int = 1, gap: int = 1,
+                    objective: str = "min", locality: str = "global",
+                    table=None, extend: int | None = None, *,
+                    device: torch.device | str | None = None) -> int:
+    """Score ONE (possibly huge) pair, as the JAX ``wavefront_score``:
+    uniform substitution costs, or a 32x32 class-cost ``table`` with ``a``
+    and ``b`` pre-mapped to class ids; linear gaps, or Gotoh affine when
+    ``extend`` is given (a k-gap costs ``gap + extend * (k - 1)``). Runs on
+    ``device``: ``cuda:0`` by default, ``"cpu"`` for the plain version."""
+    a = np.asarray(a).astype(np.int32).reshape(-1)
+    b = np.asarray(b).astype(np.int32).reshape(-1)
+    dev = platform.cuda_device(0) if device is None else torch.device(device)
+    chars = torch.from_numpy(np.concatenate([a, b])).to(dev)
+    res = wavefront_batch(chars, [0], [len(a)], [len(a)], [len(b)], match=match,
+                          mismatch=mismatch, gap=gap, objective=objective,
+                          locality=locality, table=table, extend=extend)
+    return int(res[0])
+
+
+def band_batch(chars: torch.Tensor, a_off, a_len, b_off, b_len,
+               k0: int = 64) -> torch.Tensor:
+    """The band tier on pairs ``(chars[a_off:a_off+a_len],
+    chars[b_off:b_off+b_len])``: an ``(n_pairs, 4)`` int64 tensor on
+    ``chars.device`` of distance (0 unless certified), status (1 certified,
+    2 distance over ``BAND_KMAX``), the last rung's half-width and the band
+    cells walked. The Hopper kernel for CUDA tensors, the plain version for
+    CPU ones. An empty string certifies ``m + n`` with nothing walked."""
+    return _band(chars, a_off, a_len, b_off, b_len, k0, plain=False)
+
+
+def band_reference(chars: torch.Tensor, a_off, a_len, b_off, b_len,
+                   k0: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of the band kernel, on any device: the same
+    arguments and results as ``band_batch``."""
+    return _band(chars, a_off, a_len, b_off, b_len, k0, plain=True)
+
+
+def _band(chars, a_off, a_len, b_off, b_len, k0, plain):
+    a_off, a_len, b_off, b_len = _columns(chars, a_off, a_len, b_off, b_len)
+    dev = chars.device
+    # The first rung: k0, doubled until the band holds cell (m, n).
+    first = np.full(len(a_len), max(int(k0), 2), np.int64)
+    while np.any(grow := first < np.abs(a_len - b_len)):
+        first[grow] *= 2
+    out = np.zeros((len(a_len), 4), np.int64)
+    empty = (a_len == 0) | (b_len == 0)
+    out[empty, 0] = (a_len + b_len)[empty]
+    out[:, 1] = np.where(empty, 1, 2)
+    out[:, 2] = np.where(empty, 0, np.minimum(first, BAND_KMAX))
+    result = torch.from_numpy(out).to(dev)
+    live = np.nonzero(~empty & (first <= BAND_KMAX))[0]
+    if len(live):
+        rec = np.ascontiguousarray(np.stack(
+            [a_off[live], a_len[live], b_off[live], b_len[live], first[live]], axis=1))
+        run = _band_plain if plain or dev.type == "cpu" else _band_launch
+        result[torch.from_numpy(live).to(dev)] = run(chars, rec)
+    return result
+
+
+def _band_launch(chars, rec):
+    """Every pair through ``csrc/wavefront.cu``'s band kernel, one launch."""
+    dev = chars.device
+    out = torch.empty((len(rec), 4), dtype=torch.int64, device=dev)
+    pairs = torch.from_numpy(rec).to(dev)
+    lib = cuda_build.load()
+    launches = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = lib.sz_wavefront_band(chars.data_ptr(), pairs.data_ptr(), len(rec), BAND_KMAX,
+                                    out.data_ptr(), ctypes.byref(launches),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    KERNEL_LAUNCHES["wavefront_band"] += launches.value
+    _raise_on(lib, err, "sz_wavefront_band")
+    if bool((out[:, 1] == 3).any()):  # a strip's wait stalled: a fault, never an answer
+        raise RuntimeError("sz_wavefront_band: a pipeline wait stalled (status 3)")
+    return out
+
+
+def _band_plain(chars, rec):
+    """The band kernel's ladder, a pair at a time, each rung a row at a
+    time over the band's ``2k + 1`` cells."""
+    out = []
+    for a_off, m, b_off, n, k in rec.tolist():
+        a, b = chars[a_off: a_off + m], chars[b_off: b_off + n]
+        cells, res, status = 0, 0, 0
+        while True:
+            got, stop_row, rung_cells = _band_rung(a, b, m, n, k)
+            cells += rung_cells
+            if not stop_row and got <= k:
+                res, status = got, 1
+                break
+            if k >= BAND_KMAX:
+                status = 2
+                break
+            est = got
+            if stop_row:
+                est = k * m // stop_row
+                est += est // 4
+            nxt = 2 * k
+            while nxt < min(est, BAND_KMAX):
+                nxt *= 2
+            k = min(nxt, BAND_KMAX)
+        out.append((res, status, k, cells))
+    return torch.tensor(out, dtype=torch.int64, device=chars.device)
+
+
+def _band_rung(a, b, m: int, n: int, k: int):
+    """One rung of half-width ``k``: (D[m][n] within the band, the first row
+    whose band cells all exceed ``k`` or 0, band cells walked). Row ``i``
+    holds the cells ``j = i - k + u``, ``u`` in ``[0, 2k]``; the in-row
+    chain ``D[i][j] = min(x[j], D[i][j - 1] + 1)`` is a running minimum of
+    ``x - u``, plus ``u``. A stopped rung counts the rows of its 32-row
+    strip, as the kernel walks them."""
+    dev = a.device
+    u = torch.arange(2 * k + 1, device=dev)
+    # b_pad[i + u] = b[j - 1]; -1 pads it
+    b_pad = torch.full((max(m, n) + 2 * k + 2,), -1, dtype=torch.int32, device=dev)
+    b_pad[k + 1: k + 1 + n] = b
+    big = torch.full((1,), BIG, dtype=torch.int32, device=dev)
+    j = u - k
+    prev = torch.where((j >= 0) & (j <= min(n, k)), j, BIG).to(torch.int32)  # row 0
+    cells = 0
+    for i in range(1, m + 1):
+        j = i - k + u
+        up = torch.cat([prev[1:], big])  # D[i - 1][j]
+        sub = (a[i - 1] != b_pad[i: i + 2 * k + 1]).to(torch.int32)
+        x = torch.minimum(up + 1, prev + sub)  # prev[u] is D[i - 1][j - 1]
+        valid = (j >= 0) & (j <= n)
+        x = torch.where(valid, torch.where(j == 0, i, x), BIG).to(torch.int32)
+        cur = torch.cummin(x - u, dim=0).values + u
+        prev = torch.where(valid, cur, BIG).to(torch.int32)
+        cells += min(n, i + k) - max(0, i - k) + 1
+        if not bool((prev <= k).any()):
+            for r in range(i + 1, min(m, -(-i // 32) * 32) + 1):
+                cells += min(n, r + k) - max(0, r - k) + 1
+            return 0, i, cells
+    return int(prev[n - m + k]), 0, cells
+
+
+def levenshtein_batch(chars: torch.Tensor, a_off, a_len, b_off, b_len,
+                      k0: int = 64) -> torch.Tensor:
+    """Exact unit-cost Levenshtein distances of pairs, as the JAX engine's
+    long-pair tier gives them: the band tier first, the flat tier for every
+    pair the band cannot certify. An ``(n_pairs,)`` int32 tensor on
+    ``chars.device``. Above ``MAX_FLAT_CELLS`` a pair the band does not
+    certify raises the flat tier's ``ValueError``."""
+    band = band_batch(chars, a_off, a_len, b_off, b_len, k0)
+    dist = band[:, 0].to(torch.int32)
+    rest = np.nonzero(band[:, 1].cpu().numpy() != 1)[0]
+    if len(rest):
+        cols = [np.asarray(x, dtype=np.int64).reshape(-1)[rest]
+                for x in (a_off, a_len, b_off, b_len)]
+        dist[torch.from_numpy(rest).to(chars.device)] = wavefront_batch(chars, *cols)
+    return dist
+
+
+def levenshtein_long_pair(a, b, k0: int = 64, *,
+                          device: torch.device | str | None = None) -> int:
+    """Exact Levenshtein distance of ONE long pair, as the JAX
+    ``levenshtein_long_pair``: band doubling from half-width ``k0``, the
+    flat tier when the distance is over ``BAND_KMAX``. Runs on ``device``:
+    ``cuda:0`` by default, ``"cpu"`` for the plain versions."""
+    a = np.asarray(a).astype(np.int32).reshape(-1)
+    b = np.asarray(b).astype(np.int32).reshape(-1)
+    dev = platform.cuda_device(0) if device is None else torch.device(device)
+    chars = torch.from_numpy(np.concatenate([a, b])).to(dev)
+    return int(levenshtein_batch(chars, [0], [len(a)], [len(a)], [len(b)], k0)[0])

@@ -104,6 +104,13 @@ def load() -> ctypes.CDLL:
             lib.sz_similarity.restype = i
             lib.sz_lookup.argtypes = [p, ctypes.c_size_t, p, p, i, p]
             lib.sz_lookup.restype = i
+            ll = ctypes.c_longlong
+            lib.sz_wavefront_scratch_words.argtypes = [i, p, i, p]
+            lib.sz_wavefront_scratch_words.restype = ll
+            lib.sz_wavefront.argtypes = [i] * 8 + [p, p, i, p, p, p, ll, p, p, p]
+            lib.sz_wavefront.restype = i
+            lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, p]
+            lib.sz_wavefront_band.restype = i
             lib.sz_cuda_error_string.argtypes = [i]
             lib.sz_cuda_error_string.restype = ctypes.c_char_p
             _lib, _log_path = lib, so[:-3] + ".log"

@@ -101,14 +101,19 @@ def test_engine_str_input_dtype_and_errors():
         eng([b"ab", 3], device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsz.LevenshteinDistancesUTF8()
-    with pytest.raises(NotImplementedError, match="long-pair"):
-        eng([b"a" * 5000], [b"ab"], device=CPU)
-    # non-unit engines compute pairs of up to 4096 bytes and raise beyond
-    with pytest.raises(NotImplementedError, match="long-pair"):
-        tsz.LevenshteinDistances(mismatch=2)([b"ab"], [b"a" * 4097], device=CPU)
-    with pytest.raises(NotImplementedError, match="long-pair"):
-        tsz.NeedlemanWunsch(substitution_matrix=np.eye(32, dtype=np.int32))(
-            [b"a" * 4097], [b"ab"], device=CPU)
+    # pairs over 4096 bytes run on the wavefront tier up to MAX_FLAT_CELLS
+    assert eng([b"a" * 5000], [b"ab"], device=CPU).tolist() == [[4999]]
+    assert tsz.LevenshteinDistances(mismatch=2)([b"ab"], [b"a" * 4097],
+                                                device=CPU).tolist() == [[4097]]
+    eye = np.eye(32, dtype=np.int32)
+    nw = tsz.NeedlemanWunsch(substitution_matrix=eye)([b"a" * 4097], [b"ab"], device=CPU)
+    assert nw.tolist() == [[score_linear(b"a" * 4097, b"ab",
+                                         lambda x, y: int(eye[x % 32, y % 32]), -1)]]
+    cap = b"a" * (1 << 19)  # max(m + 1, n) is one cell over MAX_FLAT_CELLS
+    with pytest.raises(ValueError, match="too long"):  # |m - n| is over the widest band
+        eng([cap], [b"ab"], device=CPU)
+    with pytest.raises(ValueError, match="too long"):
+        tsz.LevenshteinDistances(mismatch=2)([b"ab"], [cap + b"a"], device=CPU)
     with pytest.raises(ValueError):
         tsz.NeedlemanWunsch()  # no costs given, as the JAX engine raises
     with pytest.raises(ValueError):
@@ -137,7 +142,7 @@ def test_multi_device_scope_is_not_ported(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, stringzilla_tpu_torch; "
+    code = ("import sys, stringzilla_tpu_torch, stringzilla_tpu_torch.ops.wavefront; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -271,3 +276,107 @@ def test_class_mapped_tape_is_memoised(monkeypatch):
     mapped = tsim._class_mapped_tape(tsim.device_tape(tape, CPU.device), b2c)
     assert mapped is tsim._class_mapped_tape(tsim.device_tape(tape, CPU.device), b2c)
     assert mapped.data[:-1].tolist() == b2c[tape.data].tolist()
+
+
+def _long_call(rng, alphabet, side="both"):
+    """Short strings and strings of 4097-4200 bytes in one call: a long
+    query against short, empty and long candidates, the long candidate a
+    mutated copy of the query (substitutions, a deletion, a tail), and a
+    short query against all of them. ``side`` keeps the long strings on
+    the query or the candidate side only."""
+    long_q = bytearray(_strings(rng, [4150], alphabet)[0])
+    long_c = bytearray(long_q[:4100])
+    for k in rng.integers(0, 4100, 30):
+        long_c[k] = alphabet[int(rng.integers(0, len(alphabet)))]
+    del long_c[2000]
+    long_c = bytes(long_c) + _strings(rng, [60], alphabet)[0]
+    qs = _strings(rng, [30], alphabet) + [bytes(long_q), b""]
+    cs = _strings(rng, [12], alphabet) + [long_c] + _strings(rng, [0, 50], alphabet)
+    if side == "query":
+        del cs[1]
+    elif side == "candidate":
+        del qs[1]
+    return qs, cs
+
+
+_LONG_CASES = [  # engine, costs, class costs, where the long strings are
+    ("LevenshteinDistances", {}, False, "both"),
+    ("LevenshteinDistances", dict(mismatch=3, open=2, extend=2), False, "candidate"),
+    ("LevenshteinDistances", dict(match=0, mismatch=2, open=3, extend=1), False, "query"),
+    ("NeedlemanWunschScores", dict(open=-5, extend=-5), True, "candidate"),
+    ("NeedlemanWunschScores", dict(open=-7, extend=-2), True, "query"),
+    ("SmithWatermanScores", dict(open=-5, extend=-5), True, "query"),
+    ("SmithWatermanScores", dict(open=-7, extend=-2), True, "candidate"),
+]
+
+
+@pytest.mark.parametrize("engine,costs,classes,side", _LONG_CASES,
+                         ids=[f"{e}-{c}-{s}" for e, c, _, s in _LONG_CASES])
+def test_long_pairs_match_jax(engine, costs, classes, side):
+    """Every pair touching a string over 4096 bytes runs on the wavefront
+    tier (unit costs on its band kernel, as in the JAX engine), the rest on
+    the Myers kernel or the column DP, in one call."""
+    rng = _rng()
+    if classes:
+        b2c, table = _class_costs(rng)
+        args, alphabet = (b2c, table), b"ACDEFGHIKLMNPQRSTVWY"
+    else:
+        args, alphabet = (), b"acgt"
+    qs, cs = _long_call(rng, alphabet, side)
+    got = getattr(tsz, engine)(*args, **costs)(qs, cs, device=CPU)
+    want = getattr(jsz, engine)(*args, **costs)(qs, cs)
+    assert got.dtype == want.dtype and got.shape == (len(qs), len(cs))
+    np.testing.assert_array_equal(got, want)
+    if engine == "LevenshteinDistances" and not costs:
+        assert got[0, 0] == levenshtein(qs[0], cs[0])
+        assert got[2, 1] == len(cs[1]) and got[1, 2] == len(qs[1])
+
+
+def test_long_pairs_symmetric_call_out_and_int_arrays():
+    """The symmetric call and ``out=`` over long strings, and int-array
+    inputs (the host collection) with a long string, as the JAX engines."""
+    rng = _rng()
+    b2c, table = _class_costs(rng)
+    qs, cs = _long_call(rng, b"ACDEFGHIKLMNPQRSTVWY")
+    seqs = qs[:2] + cs[1:3]
+    eng = (b2c, table)
+    out = np.full((4, 4), 7, np.int64)
+    got = tsz.SmithWatermanScores(*eng, open=-7, extend=-2)(seqs, device=CPU, out=out)
+    assert got is out
+    np.testing.assert_array_equal(out, jsz.SmithWatermanScores(*eng, open=-7, extend=-2)(seqs))
+    ints = [np.frombuffer(s, np.uint8).astype(np.int64) for s in qs]
+    shorts = cs[:1] + cs[2:]
+    got = tsz.LevenshteinDistances(mismatch=3, open=2, extend=2)(ints, shorts, device=CPU)
+    np.testing.assert_array_equal(
+        got, jsz.LevenshteinDistances(mismatch=3, open=2, extend=2)(ints, shorts))
+
+
+def test_unit_cost_long_pairs_take_the_band(monkeypatch):
+    """A near-duplicate unit-cost long pair is certified by the band tier
+    and never reaches the flat one; a pair too far apart for the widest band
+    does, as in the JAX engine; non-unit costs stay on the flat tier."""
+    from stringzilla_tpu_torch.models import similarities as tsim
+    from stringzilla_tpu_torch.ops import wavefront as wf
+
+    calls = {"band": 0, "flat": 0}
+    real_band, real_flat = wf.band_batch, wf.wavefront_batch
+
+    def spy(name, real):
+        def call(*args, **kw):
+            calls[name] += 1
+            return real(*args, **kw)
+        return call
+
+    monkeypatch.setattr(wf, "band_batch", spy("band", real_band))
+    monkeypatch.setattr(wf, "wavefront_batch", spy("flat", real_flat))
+    monkeypatch.setattr(tsim, "wavefront_batch", wf.wavefront_batch)
+    rng = _rng()
+    long1 = bytes(rng.integers(97, 100, 4096 + 300).astype(np.uint8))
+    long2 = long1[:-6] + b"XYZXYZ"
+    got = tsz.LevenshteinDistances()([long1], [long2], device=CPU)
+    assert got.tolist() == [[6]] and calls == {"band": 1, "flat": 0}
+    short = b"ab"
+    got = tsz.LevenshteinDistances()([long1], [short], device=CPU)
+    assert got.tolist() == [[levenshtein(long1, short)]] and calls == {"band": 2, "flat": 1}
+    got = tsz.LevenshteinDistances(mismatch=2)([long1], [long2], device=CPU)
+    assert got.tolist() == [[12]] and calls == {"band": 2, "flat": 2}
