@@ -73,7 +73,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the plain version; the band's bound counts the band cells it walked, and
    the flat kernel is timed on the long pair beside it.
 
-Phases 4, 4b and 4c also profile one engine call of each workload with
+3d. The same for this slice's kernels: ``ops.fingerprints_kernel.
+   fingerprint_all`` against ``fingerprint_reference`` with widths 1, 3
+   and 31 (interleaved over 100 dimensions), the default widths, a width of
+   2000 (above some documents and the kernel's halo), empty documents,
+   documents of 1-5000 bytes and 64 KB ones, then every case of
+   ``tests/golden/fingerprint_vectors.json`` and the numpy oracle on
+   sampled documents; the rune route of ``ops.myers.myers`` against
+   ``myers_reference(..., alphabet=None)`` on query blocks of 1-4096 runes
+   (queries of 1, 64, 256, 257 and 4096 runes, blocks of more than 256
+   distinct runes, 4-byte runes, U+0000), and against Wagner-Fischer on
+   sampled pairs. Exact equality.
+4d. Main path, fingerprints and UTF-8: ``Fingerprints(ndim=256)``
+   (default widths, seed 42) on ``benches/bench_all.py::
+   bench_fingerprints``'s lines (32,768 docs of 60-179 printable ASCII
+   bytes) and on 2,048 web-page-sized docs of 2-16 KB, then
+   ``LevenshteinDistancesUTF8()`` on ``bench_levenshtein_utf8``'s mixed
+   script (64 x 8,192 strings of N(100, 12) runes clipped to [8, 128],
+   ASCII, Cyrillic and CJK) and on a CJK-wide set (64 x 2,048 strings of
+   100-400 runes from 3,000 CJK code points, so every query block holds
+   more than 256 distinct runes). Counts are reset before these four calls
+   and read after; the MinHash kernel and both rune tiers must have
+   launched. Each result must equal the plain version on the card and the
+   numpy oracle or Wagner-Fischer over runes on sampled docs or pairs. Times
+   the kernel alone, the engines (fingerprints to ``device_out``, with the
+   host pull, and ``device_out`` plus ``band_keys(bands=16)``) and the
+   plain versions; then one malformed collection through the host decode.
+
+Phases 4-4d also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it.
 
 Prints the card's name and power limit and one JSON line of per-kernel
@@ -109,6 +136,11 @@ WAVEFRONT_BIG = [(20000, 19000), (15000, 20011)]
 # has |m - n| over it
 BAND_NEAR = [(1, 0.0), (2, 0.5), (100, 0.03), (4097, 0.01), (20000, 0.003), (19000, 0.015)]
 BAND_FAR = [(1, 1), (1, 40), (300, 250), (5000, 4800), (3000, 10)]
+FP_LINES = 32768  # bench_fingerprints' docs of 60-179 printable bytes
+FP_DOCS = (2048, 2048, 16385)  # web-page dedup: count, lengths in [lo, hi)
+FP_BIG = 3  # phase 3d's 64 KB docs
+UTF8_MIXED = (64, 8192)  # bench_levenshtein_utf8's shape
+UTF8_CJK = (64, 2048)  # 100-400 runes from 3,000 CJK code points
 
 # The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
 # multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused
@@ -120,6 +152,13 @@ HBM_BYTES_PER_S = 3.35e12
 # 2 adds + 2 min/max + the substitution (linear), 5 adds + 4 min/max + the
 # substitution (affine), plus the clamp and the running best when local.
 MYERS_OPS_PER_WORD_STEP = 34
+# f64 has 64 lanes an SM a clock, half of float32's 128; counted as
+# instructions (a fused multiply-add is one), like the int32 rate. The
+# MinHash roll per (document, dimension, byte): a multiply, two fused
+# multiply-adds, an add, a multiply and a floor for the quotient, two
+# compare-and-corrects and the minimum's compare and select.
+F64_OPS_PER_S = 67e12 / 4
+FINGERPRINT_OPS_PER_STEP = 10
 
 
 def _dp_ops_per_cell(cfg) -> int:
@@ -138,12 +177,12 @@ def _check(cond, what):
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def _wagner_fischer(a: bytes, b: bytes) -> int:
-    """Row-at-a-time Wagner-Fischer in numpy: the in-row dependency
-    cur[j] = min(x[j], cur[j-1] + 1) is solved exactly as a running minimum
-    of x[j] - j, plus j."""
-    a = np.frombuffer(a, np.uint8)
-    b = np.frombuffer(b, np.uint8)
+def _wagner_fischer(a, b) -> int:
+    """Row-at-a-time Wagner-Fischer in numpy over bytes or int sequences
+    (runes): the in-row dependency cur[j] = min(x[j], cur[j-1] + 1) is
+    solved exactly as a running minimum of x[j] - j, plus j."""
+    a = np.frombuffer(a, np.uint8) if isinstance(a, bytes) else np.asarray(a, np.int64)
+    b = np.frombuffer(b, np.uint8) if isinstance(b, bytes) else np.asarray(b, np.int64)
     j = np.arange(len(b) + 1, dtype=np.int64)
     prev = j.copy()
     for i in range(1, len(a) + 1):
@@ -251,7 +290,10 @@ def _time_ms(fn, iters, sync):
 def _profile(name, fn, sync):
     """Prints the device's idle share of one call of ``fn`` under
     ``torch.profiler``: device time is the sum of every kernel's and copy's
-    own time, wall time the host clock to the end of a synchronise."""
+    own time (the device's events only: a host op's device time repeats
+    the time of the kernels it launched), wall time the host clock to the
+    end of a synchronise."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -260,8 +302,8 @@ def _profile(name, fn, sync):
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms = sum(getattr(e, "self_device_time_total", 0)
-                    for e in prof.key_averages()) / 1e3
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
     print(f"[profile] {name}: one engine call under torch.profiler: device "
           f"{device_ms:.3f} ms of {wall_ms:.3f} ms wall, idle "
           f"{100 * (1 - device_ms / wall_ms):.1f}%")
@@ -467,8 +509,8 @@ def _myers_main_path(dev, sync, report):
     long_ = engine(long_q, long_c)
     launches = dict(myers_mod.KERNEL_LAUNCHES)
     print(f"[engine] launches on the unit-cost main path: {launches}")
-    for k, n in launches.items():
-        _check(n > 0, f"{k} was not launched on the main path")
+    for k in ("myers_tier_a", "myers_tier_b"):  # byte strings: the rune tiers run in 4d
+        _check(launches[k] > 0, f"{k} was not launched on the main path")
 
     for name, qs, cs, res, n_wf, tier in (
             ("headline", head_q, head_c, head, 256, "myers_tier_a"),
@@ -937,8 +979,337 @@ def _wavefront_main_path(dev, sync, report):
                   f"{cells / flat_ms / 1e6:.3f} GCUPS, {flat_ms / kernel_ms:.2f}x the band's time")
 
 
+def _fp_inputs(dev, docs):
+    """``fingerprint_all``'s device inputs: the docs end to end, plus one
+    zero byte, and each doc's start and length."""
+    import torch
+
+    lens = np.array([len(d) for d in docs], np.int64)
+    starts = np.zeros(len(docs), np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    blob = np.frombuffer(b"".join(docs) + b"\0", np.uint8).copy()
+    return (torch.from_numpy(blob).to(dev), torch.from_numpy(starts).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def _fp_params(dev, ndim, widths, seed):
+    import torch
+    from stringzilla_tpu_torch.ops.fingerprints import derive_params
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in derive_params(ndim, widths, seed).items()}
+
+
+def _check_fingerprint_kernel(dev, sync, max_err):
+    """Phase 3d: the MinHash kernel against its plain version, the golden
+    vectors and the numpy oracle."""
+    import torch
+    from stringzilla_tpu_torch.ops.fingerprints import (DEFAULT_WINDOW_WIDTHS, derive_params,
+                                                        fingerprint_oracle)
+    from stringzilla_tpu_torch.ops.fingerprints_kernel import (fingerprint_all,
+                                                               fingerprint_reference)
+
+    rng = np.random.default_rng(SEED + 5)
+    short = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in
+             (0, 1, 2, 3, 30, 31, 32, 0, 100, 1999, 2000, 2001, 4095, 4096, 4097, 5000)]
+    big = [rng.integers(32, 127, 65536, dtype=np.uint8).tobytes() for _ in range(FP_BIG - 1)]
+    big.append(b"ab" * 32768)  # every window ties with the minimum of its phase
+    cases = [  # name, ndim, widths, seed, docs
+        ("default widths", 256, None, 42, short),
+        ("widths 1/3/31 over 100 dims", 100, (1, 3, 31), 5, short),
+        ("width 2000", 64, (3, 2000), 1, short),
+        ("64 KB docs", 100, (1, 3, 31), 7, big),
+    ]
+    err = 0
+    for name, ndim, widths, seed, docs in cases:
+        args = (*_fp_inputs(dev, docs), _fp_params(dev, ndim, widths, seed))
+        got = fingerprint_all(*args)
+        want = fingerprint_reference(*args)
+        sync()
+        err = max(err, *(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)))
+        _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+               f"fingerprint kernel != plain version in case {name}")
+        params = derive_params(ndim, widths, seed)
+        for i in (1, 5, len(docs) - 1) if docs is short else ():
+            oh, oc = fingerprint_oracle(docs[i], params)
+            _check(np.array_equal(got[0][i].cpu().numpy().view(np.uint32), oh)
+                   and np.array_equal(got[1][i].cpu().numpy().view(np.uint32), oc),
+                   f"fingerprint kernel != numpy oracle on doc {i} in case {name}")
+        print(f"[kernel] fingerprint_minhash {name}: {len(docs)} docs of "
+              f"{min(map(len, docs))}-{max(map(len, docs))} bytes x {ndim} dims exact")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                           "fingerprint_vectors.json")) as f:
+        golden = json.load(f)
+    groups = {}
+    for case in golden:
+        groups.setdefault((case["seed"], case["nwidths"]), []).append(case)
+    for (seed, nw), group in sorted(groups.items()):
+        docs = [bytes(case["doc"]) for case in group]
+        h, c = fingerprint_all(*_fp_inputs(dev, docs),
+                               _fp_params(dev, 64 * nw, DEFAULT_WINDOW_WIDTHS[:nw], seed))
+        h, c = h.cpu().numpy().view(np.uint32), c.cpu().numpy().view(np.uint32)
+        for i, case in enumerate(group):
+            _check(h[i].tolist() == case["hashes"] and c[i].tolist() == case["counts"],
+                   f"fingerprint kernel != golden vector seed {seed} widths {nw} "
+                   f"doc of {len(case['doc'])} bytes")
+    print(f"[kernel] fingerprint_minhash: all {len(golden)} golden vectors exact")
+    max_err["fingerprint_minhash"] = err
+
+
+def _rune_block(rng, q_lens, c_lens, rows, cand_len, alphabet):
+    """``_block``'s layouts over the runes of ``alphabet``: query padding
+    stays -1."""
+    q_t, ql, c_t, cl = _block(rng, q_lens, c_lens, rows, cand_len, 0, len(alphabet))
+    alphabet = np.asarray(alphabet, np.int32)
+    return np.where(q_t >= 0, alphabet[q_t.clip(0)], -1).astype(np.int32), ql, alphabet[c_t], cl
+
+
+CJK = np.arange(0x4E00, 0x4E00 + 3000)
+
+
+def _check_rune_myers_kernel(dev, sync, max_err):
+    """Phase 3d: both Myers tiers' rune route against their plain version
+    and Wagner-Fischer."""
+    import torch
+    from stringzilla_tpu_torch.ops.myers import myers, myers_reference, words_of
+    from tests.oracles import levenshtein
+
+    rng = np.random.default_rng(SEED + 6)
+    # U+0000, 4-byte runes (U+10000.., emoji), Latin and CJK
+    mixed = np.concatenate([[0], np.arange(0x10000, 0x10040), np.arange(0x1F600, 0x1F640),
+                            np.arange(97, 123), CJK[:600]])
+    cases = [  # name, query lengths, candidate lengths, rows, cand_len, runes
+        ("runes w1", [1, 17, 64, 0], rng.integers(0, 101, 300), 64, 100, mixed[:40]),
+        ("runes w1 wide", [1, 64, 60, 50, 64], rng.integers(0, 101, 300), 64, 100, mixed),
+        ("runes w4", [256, 255, 1, 64], rng.integers(0, 301, 300), 256, 300, CJK),
+        ("runes w5", [257, 300, 64], rng.integers(0, 400, 64), 320, 400, mixed),
+        ("runes w64", [4096, 4000, 257, 1], rng.integers(0, 4097, 24), 4096, 4096, CJK),
+    ]
+    for name, q_lens, c_lens, rows, cand_len, runes in cases:
+        q_t, ql, c_t, cl = _rune_block(rng, q_lens, c_lens, rows, cand_len, runes)
+        c_t[:2, 1] = [0, -1]  # U+0000 matches; the padding value is a rune like any
+        args = [torch.from_numpy(x).to(dev) for x in (q_t, ql, c_t, cl)]
+        got = myers(*args, alphabet=None)
+        want = myers_reference(*args, alphabet=None)
+        sync()
+        err = int((got.long() - want.long()).abs().max())
+        tier = ("myers_tier_a" if words_of(rows) <= 4 else "myers_tier_b") + "_runes"
+        max_err[tier] = max(max_err.get(tier, 0), err)
+        distinct = len(np.unique(np.concatenate([q_t[:m, i] for i, m in enumerate(q_lens)])))
+        print(f"[kernel] {name:14s} {tier} rows={rows} cand_len={cand_len} "
+              f"{len(q_lens)}x{len(c_lens)}, {distinct} distinct runes in the block, "
+              f"max_abs_err={err}")
+        _check(torch.equal(got, want), f"rune kernel != plain version in case {name}")
+        res = got.cpu().numpy()
+        # tests/oracles.py's Wagner-Fischer is pure Python: the numpy one
+        # takes the 4096-rune queries
+        wf = levenshtein if rows <= 320 else _wagner_fischer
+        for i, j in [(0, 0), (0, 1), (len(q_lens) - 1, 2), (1, len(c_lens) - 1)]:
+            _check(res[i, j] == wf(q_t[: ql[i, 0], i], c_t[: cl[0, j], j]),
+                   f"{name}: pair ({i}, {j}) != Wagner-Fischer")
+
+
+def _fingerprint_main_path(dev, sync, report):
+    """Phase 4d: ``Fingerprints`` on lines and on web-page-sized docs."""
+    import torch
+    from stringzilla_tpu_torch import Fingerprints, Tape
+    from stringzilla_tpu_torch.ops import fingerprints_kernel as fp_mod
+    from stringzilla_tpu_torch.ops.fingerprints import band_keys, fingerprint_oracle
+    from stringzilla_tpu_torch.ops.fingerprints_kernel import (fingerprint_all,
+                                                               fingerprint_reference)
+    from stringzilla_tpu_torch.ops.pack_device import device_tape
+
+    def docs_of(rng, count, lo, hi):
+        lens = rng.integers(lo, hi, count)
+        chars = rng.integers(32, 127, int(lens.sum()), dtype=np.uint8).tobytes()
+        ends = np.cumsum(lens)
+        return [chars[e - n: e] for e, n in zip(ends, lens)]
+
+    lines = docs_of(np.random.default_rng(SEED), FP_LINES, 60, 180)
+    pages = docs_of(np.random.default_rng(SEED + 7), *FP_DOCS)
+    engine = Fingerprints(ndim=256, seed=42)
+    sync()
+    _reset(fp_mod.KERNEL_LAUNCHES)
+    results = [engine(lines), engine(pages)]
+    launches = dict(fp_mod.KERNEL_LAUNCHES)
+    print(f"[engine] launches on the fingerprints main path: {launches}")
+    _check(launches["fingerprint_minhash"] > 0, "fingerprint_minhash was not launched")
+
+    for (name, docs, n_oracle), (h, c) in zip(
+            (("fingerprints-lines", lines, 16), ("fingerprints-docs", pages, 2)), results):
+        _check(h.dtype == c.dtype == np.uint32 and h.shape == c.shape == (len(docs), 256),
+               f"{name}: result {h.dtype} {h.shape}")
+        dt = device_tape(Tape.from_strings(docs), dev)
+        args = (dt.data, torch.from_numpy(dt.starts).to(dev),
+                torch.from_numpy(dt.lengths).to(dev), engine._params_on(dev))
+        # the plain version is timed on this one call: it takes seconds
+        sync()
+        t0 = time.perf_counter()
+        plain = fingerprint_reference(*args)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _check(np.array_equal(h, plain[0].cpu().numpy().view(np.uint32))
+               and np.array_equal(c, plain[1].cpu().numpy().view(np.uint32)),
+               f"{name}: engine result != plain version on the card")
+        for i in np.random.default_rng(SEED + 8).integers(0, len(docs), n_oracle):
+            oh, oc = fingerprint_oracle(docs[i], engine._params)
+            _check(np.array_equal(h[i], oh) and np.array_equal(c[i], oc),
+                   f"{name}: doc {i} != the numpy oracle")
+        print(f"[engine] {name}: {len(docs)} docs equal the plain version and the numpy "
+              f"oracle on {n_oracle} docs")
+
+        total = float(sum(map(len, docs)))
+        hashes = total * 256  # (doc, dimension, byte) steps
+        runs = 3
+
+        def host_ms(fn):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            sync()
+            return (time.perf_counter() - t0) / runs * 1e3
+
+        engine_ms = host_ms(lambda: engine(docs))
+        device_ms = host_ms(lambda: engine(docs, device_out=True))
+        bands_ms = host_ms(lambda: band_keys(engine(docs, device_out=True)[0], bands=16))
+        _profile(name, lambda: engine(docs), sync)
+        kernel_ms = _time_ms(lambda: fingerprint_all(*args), 10, sync)
+        ops_ms = FINGERPRINT_OPS_PER_STEP * hashes / F64_OPS_PER_S * 1e3
+        bytes_ms = (total + 16.0 * len(docs) + 8.0 * 256 * len(docs)) / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+        if name == "fingerprints-lines":
+            report["fingerprint_minhash"] = dict(
+                launches=launches["fingerprint_minhash"], ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print(f"[perf] {name} {len(docs)} docs, {total:.0f} bytes x 256 dims: "
+              f"kernel {kernel_ms:.4f} ms = {hashes / kernel_ms / 1e6:.3f} Ghash/s; "
+              f"engine to device_out {device_ms:.3f} ms = {hashes / device_ms / 1e6:.3f} Ghash/s; "
+              f"device_out + band_keys(16) {bands_ms:.3f} ms; "
+              f"engine+pull {engine_ms:.3f} ms = {hashes / engine_ms / 1e6:.3f} Ghash/s; "
+              f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def _utf8_sets():
+    """Phase 4d's UTF-8 workloads: (name, queries, candidates) as str."""
+    rng = np.random.default_rng(SEED)
+    # bench_levenshtein_utf8's pools: ASCII, Cyrillic, CJK, 1-3 bytes a rune
+    pools = [np.arange(97, 123), np.arange(0x430, 0x450), np.arange(0x4E00, 0x4E60)]
+
+    def mixed(count):
+        lens = np.clip(rng.normal(100, 12, count).astype(int), 8, 128)
+        which = rng.integers(0, 3, int(lens.sum()))
+        pick = rng.integers(0, 1 << 20, int(lens.sum()))
+        runes = np.choose(which, [p[pick % len(p)] for p in pools])
+        return [runes[e - n: e] for e, n in zip(np.cumsum(lens), lens)]
+
+    def cjk(count):
+        lens = rng.integers(100, 401, count)
+        runes = rng.choice(CJK, int(lens.sum()))
+        return [runes[e - n: e] for e, n in zip(np.cumsum(lens), lens)]
+
+    text = lambda rs: ["".join(map(chr, r)) for r in rs]
+    return [("utf8-mixed", text(mixed(UTF8_MIXED[0])), text(mixed(UTF8_MIXED[1]))),
+            ("utf8-cjk", text(cjk(UTF8_CJK[0])), text(cjk(UTF8_CJK[1])))]
+
+
+def _utf8_main_path(dev, sync, report):
+    """Phase 4d: ``LevenshteinDistancesUTF8`` on mixed-script and CJK-wide
+    sets, then a malformed collection."""
+    import torch
+    from stringzilla_tpu_torch import LevenshteinDistancesUTF8, Tape
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+    from stringzilla_tpu_torch.ops.myers import myers, myers_reference
+    from stringzilla_tpu_torch.ops.pack_device import device_tape
+    from stringzilla_tpu_torch.ops.tape import dyadic_bucket
+    from stringzilla_tpu_torch.ops.utf8_pack_device import decode_pack_device
+
+    sets = _utf8_sets()
+    engine = LevenshteinDistancesUTF8()
+    sync()
+    _reset(myers_mod.KERNEL_LAUNCHES)
+    results = [engine(qs, cs) for _, qs, cs in sets]
+    launches = dict(myers_mod.KERNEL_LAUNCHES)
+    print(f"[engine] launches on the UTF-8 main path: {launches}")
+    for k in ("myers_tier_a_runes", "myers_tier_b_runes"):
+        _check(launches[k] > 0, f"{k} was not launched on the main path")
+
+    for (name, qs, cs), res in zip(sets, results):
+        _check(res.dtype == np.uint64 and res.shape == (len(qs), len(cs)),
+               f"{name}: result {res.dtype} {res.shape}")
+        q_runes = [[ord(ch) for ch in q] for q in qs]
+        ql = np.array([len(r) for r in q_runes], np.float64)
+        cl = np.array([len(c) for c in cs], np.float64)
+        # the engine's query blocks are dyadic rune buckets
+        blocks = {}
+        for r in q_runes:
+            blocks.setdefault(dyadic_bucket(len(r)), set()).update(r)
+        distinct = {b: len(v) for b, v in sorted(blocks.items())}
+        print(f"[engine] {name}: distinct runes per query block {distinct}")
+        if name == "utf8-cjk":
+            _check(min(distinct.values()) > 256, f"{name}: a query block with <= 256 runes")
+
+        def packed_block(texts, rows, fill):
+            raw = [t.encode() for t in texts]
+            dt = device_tape(Tape.from_strings(raw), dev)
+            return decode_pack_device(dt, np.arange(len(raw)), dyadic_bucket(max(map(len, raw))),
+                                      rows, fill=fill)
+
+        rows = -(-int(ql.max()) // 32) * 32
+        cand_len = int(cl.max())
+        packed = (packed_block(qs, rows, -1),
+                  torch.from_numpy(ql.astype(np.int32)).to(dev).view(-1, 1),
+                  packed_block(cs, cand_len, 0),
+                  torch.from_numpy(cl.astype(np.int32)).to(dev).view(1, -1))
+        plain = myers_reference(*packed, alphabet=None)
+        _check(np.array_equal(res.astype(np.int64), plain.cpu().numpy()),
+               f"{name}: engine result != plain version on the card")
+        pick = np.random.default_rng(SEED + 9)
+        for i, j in zip(pick.integers(0, len(qs), 16), pick.integers(0, len(cs), 16)):
+            _check(int(res[i, j]) == _wagner_fischer(q_runes[i], [ord(ch) for ch in cs[j]]),
+                   f"{name}: pair ({i}, {j}) != Wagner-Fischer over runes")
+        print(f"[engine] {name}: {len(qs)}x{len(cs)} equals the plain version and "
+              f"Wagner-Fischer over runes on 16 pairs")
+
+        cells = ql.sum() * cl.sum()
+        word_steps = np.ceil(ql / 64).sum() * cl.sum()
+        nbytes = 4.0 * (rows * len(qs) + cand_len * len(cs) + len(qs) * len(cs))
+        t0 = time.perf_counter()
+        engine_runs = 3
+        for _ in range(engine_runs):
+            engine(qs, cs)
+        engine_s = (time.perf_counter() - t0) / engine_runs
+        _profile(name, lambda: engine(qs, cs), sync)
+        kernel_ms = _time_ms(lambda: myers(*packed, alphabet=None), 10, sync)
+        plain_ms = _time_ms(lambda: myers_reference(*packed, alphabet=None), 1, sync)
+        bound_ms, bound_by = _bound(MYERS_OPS_PER_WORD_STEP * word_steps, nbytes)
+        tier = "myers_tier_a_runes" if rows <= 256 else "myers_tier_b_runes"
+        report[tier] = dict(launches=launches[tier], ms=kernel_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        print(f"[perf] {name} rows={rows} cand_len={cand_len} cells={cells:.0f}: "
+              f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
+              f"{tier} {kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; "
+              f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+
+    # A malformed collection: its strings are decoded on the host, each
+    # maximal invalid subpart becoming U+FFFD, then scored on the card.
+    name, qs, cs = sets[0]
+    bad = [c.encode() for c in cs[:512]]
+    bad[3] = bad[3][:10] + b"\xff" + bad[3][10:]
+    bad[7] = bad[7] + b"\xe2\x82"
+    res = engine(qs[:16], bad)
+    fixed = engine(qs[:16], [b.decode("utf-8", "replace") for b in bad])
+    _check(np.array_equal(res, fixed), "malformed collection != its host decode")
+    for i, j in [(0, 3), (5, 7), (2, len(bad) - 1)]:
+        _check(int(res[i, j]) == _wagner_fischer(
+            [ord(ch) for ch in qs[i]], [ord(ch) for ch in bad[j].decode("utf-8", "replace")]),
+            f"malformed collection: pair ({i}, {j}) != Wagner-Fischer over runes")
+    print("[engine] a malformed collection of 16x512 takes the host decode and equals "
+          "Wagner-Fischer over its U+FFFD runes")
+
+
 def run(dev) -> list:
-    """Phases 3-4c on ``dev``; returns each kernel's report entry."""
+    """Phases 3-4d on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
@@ -948,9 +1319,13 @@ def run(dev) -> list:
     _check_lut_kernel(dev, sync, max_err)
     _check_wavefront_kernel(dev, sync, max_err)
     _check_band_kernel(dev, sync, max_err)
+    _check_fingerprint_kernel(dev, sync, max_err)
+    _check_rune_myers_kernel(dev, sync, max_err)
     _myers_main_path(dev, sync, report)
     _dp_main_path(dev, sync, report)
     _wavefront_main_path(dev, sync, report)
+    _fingerprint_main_path(dev, sync, report)
+    _utf8_main_path(dev, sync, report)
     replaces = {
         "myers_tier_a": ("stringzilla_tpu/ops/myers_pallas.py:396", "csrc/myers.cu"),
         "myers_tier_b": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
@@ -961,6 +1336,10 @@ def run(dev) -> list:
                            "csrc/wavefront.cu"),
         "wavefront_band": ("stringzilla_tpu/ops/wavefront_pallas.py:527",
                            "csrc/wavefront.cu"),
+        "fingerprint_minhash": ("stringzilla_tpu/ops/fingerprints_pallas.py:70",
+                                "csrc/fingerprints.cu"),
+        "myers_tier_a_runes": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
+        "myers_tier_b_runes": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
     }
     return [{"name": k, "route": "cuda",
              "source": f"stringzilla_tpu_torch/{src}", "replaces": tpu,
@@ -999,10 +1378,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-4c: kernels against plain versions, then the main paths ---
+    # -- phases 3-4d: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-4c in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-4d in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

@@ -12,14 +12,17 @@ Layout mirrors ``stringzilla_tpu`` so each module has a counterpart:
 * ``stringzilla_tpu_torch.models`` — engine classes and ``DeviceScope``
 * ``stringzilla_tpu_torch.utils``  — device resolution, the CUDA kernel build
 
-Ported so far, over byte strings of up to 4096 bytes on one device:
-``LevenshteinDistances`` with any costs (unit costs on the Myers kernel,
-others on the column DP), ``NeedlemanWunschScores`` and
-``SmithWatermanScores`` (the column DP, with the byte-LUT kernel mapping
-bytes to cost classes).
+Ported so far, on one device: ``LevenshteinDistances`` with any costs
+(unit costs on the Myers kernel, others on the column DP),
+``NeedlemanWunschScores`` and ``SmithWatermanScores`` (the column DP, with
+the byte-LUT kernel mapping bytes to cost classes), pairs with a string
+over 4096 chars on the wavefront kernels, ``LevenshteinDistancesUTF8``
+(the same engines over runes, the Myers kernel's rune route for unit
+costs) and ``Fingerprints`` (the MinHash kernel).
 """
 
 from .models.device_scope import DeviceScope
+from .models.fingerprints import Fingerprints
 from .models.similarities import (
     LevenshteinDistances,
     LevenshteinDistancesUTF8,
@@ -40,6 +43,7 @@ def __capabilities__():
 
 __all__ = [
     "DeviceScope",
+    "Fingerprints",
     "LevenshteinDistances",
     "LevenshteinDistancesUTF8",
     "NeedlemanWunsch",

@@ -24,11 +24,19 @@ call in one batch: unit costs on the band kernel, with the flat kernel for
 the pairs whose distance is over its widest band, every other
 configuration on the flat kernel.
 
-Ported: byte strings on one device. A long pair that reaches the flat
+``LevenshteinDistancesUTF8`` scores runes instead of bytes: each
+collection is checked and counted in runes on the device
+(``ops/utf8_pack_device.py``), the dyadic buckets and the 4096 threshold
+are over runes, dense blocks are decoded on the device, unit costs run the
+Myers kernel's rune route and other costs the column DP and the wavefront
+tier over int32 runes. A collection with any malformed string is decoded
+on the host instead, each maximal invalid subpart becoming U+FFFD, as the
+reference does.
+
+Ported: everything on one device. A long pair that reaches the flat
 kernel may have up to ``MAX_FLAT_CELLS`` diagonal cells
 (``max(m + 1, n)``); beyond that it raises the ``ValueError`` of the JAX
-package's single-device path. UTF-8 engines raise ``NotImplementedError``
-naming their ROADMAP item. None computes an approximate answer.
+package's single-device path. None computes an approximate answer.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ..ops.similarity import (AffineGaps, ClassCosts, LinearGaps,
                               SimilarityConfig, UniformCosts)
 from ..ops.similarity_dp import similarity
 from ..ops.tape import Tape, round_up
+from ..ops.utf8_pack_device import decode_pack_device, rune_count_validity
 from ..ops.wavefront import config_costs, levenshtein_batch, wavefront_batch
 from .device_scope import DeviceScope, default_device_scope
 
@@ -60,12 +69,6 @@ __all__ = [
 _LONG_THRESHOLD = 4096  # a pair with a longer string runs on the wavefront tier
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to stringzilla_tpu_torch yet (ROADMAP.md, "
-        f"queue 1: {item}); stringzilla_tpu computes it on a TPU")
-
-
 def _reject_integer_like(s) -> None:
     """Integer-like items must raise TypeError like the reference binding —
     ``bytes(n)`` would silently yield an n-byte ZERO-FILLED string."""
@@ -76,7 +79,18 @@ def _reject_integer_like(s) -> None:
     raise TypeError(f"expected a string-like item, got {type(s).__name__}")
 
 
-def _as_int_arrays(items) -> list[np.ndarray]:
+def _decode_utf8_runes(data: bytes) -> np.ndarray:
+    """Decode to 32-bit runes; invalid bytes become U+FFFD (the reference's
+    maximal-subpart resync, ``README.md:888-893``)."""
+    return np.array([ord(c) for c in data.decode("utf-8", errors="replace")],
+                    dtype=np.int32)
+
+
+def _as_int_arrays(items, utf8: bool) -> list[np.ndarray]:
+    """Each item's chars: an ndarray's values as they are, a string's bytes,
+    or its runes when ``utf8``."""
+    if isinstance(items, Tape):
+        items = items.to_list()
     out = []
     for s in items:
         if isinstance(s, str):
@@ -86,6 +100,8 @@ def _as_int_arrays(items) -> list[np.ndarray]:
             s = bytes(s)  # bytearray/memoryview views
         if isinstance(s, np.ndarray):
             out.append(s.astype(np.int32))
+        elif utf8:
+            out.append(_decode_utf8_runes(s))
         else:
             out.append(np.frombuffer(s, dtype=np.uint8).astype(np.int32))
     return out
@@ -111,18 +127,19 @@ def _group_dyadic(lengths: np.ndarray) -> dict[int, np.ndarray]:
 
 
 class _HostFallback(Exception):
-    """Raised when a collection can't take the device-tape path
-    (pre-decoded ndarray inputs, whose values are chars, not raw bytes)."""
+    """Raised when a collection can't take the device-tape path:
+    pre-decoded ndarray inputs, whose values are chars, not raw bytes, or
+    malformed UTF-8, which needs the host's maximal-subpart U+FFFD decode."""
 
 
 class _HostCollection:
-    """Host-packed collection for int-array inputs: each block is packed on
-    the host and copied to the scope's device, where it is scored. A
-    class-cost engine's ``b2c`` maps the char values by numpy indexing, as
-    the JAX package does."""
+    """Host-packed collection for int-array inputs and malformed UTF-8:
+    each block is packed on the host and copied to the scope's device,
+    where it is scored. A class-cost engine's ``b2c`` maps the char values
+    by numpy indexing, as the JAX package does."""
 
-    def __init__(self, items, device: torch.device, b2c):
-        arrs = _as_int_arrays(items)
+    def __init__(self, items, device: torch.device, b2c, utf8: bool):
+        arrs = _as_int_arrays(items, utf8)
         if b2c is not None:
             arrs = [b2c[a].astype(np.int32) for a in arrs]
         self._arrs = arrs
@@ -170,9 +187,10 @@ def _class_mapped_tape(dt: DeviceTape, b2c) -> DeviceTape:
 class _DeviceCollection:
     """Device-resident collection: the byte blob rides to the device once
     and every dense block is gathered there (from the class-mapped blob for
-    a class-cost engine)."""
+    a class-cost engine, decoded to runes for a ``utf8`` one, whose
+    ``lens`` then count runes)."""
 
-    def __init__(self, items, device: torch.device, b2c):
+    def __init__(self, items, device: torch.device, b2c, utf8: bool):
         if isinstance(items, Tape):
             tape = items
         else:
@@ -193,12 +211,30 @@ class _DeviceCollection:
         self._dt = device_tape(tape, device)
         self._packsrc = (self._dt if b2c is None
                          else _class_mapped_tape(self._dt, b2c))
-        self.lens = tape.lengths
+        self._utf8 = utf8
+        self._byte_lens = tape.lengths
+        self.lens = self._byte_lens
+        if utf8:
+            self.lens = np.zeros(len(tape), dtype=np.int64)
+            for bucket, idx in _group_dyadic(self._byte_lens).items():
+                counts, violations = rune_count_validity(self._dt, idx, bucket)
+                if violations.any():
+                    raise _HostFallback
+                self.lens[idx] = counts
 
     def __len__(self) -> int:
         return len(self.lens)
 
+    def _decode(self, idx, rows: int, fill: int, transpose: bool, shift: bool = False):
+        """Dense rune block of strings ``idx``, ``rows`` runes each."""
+        byte_len = int(_dyadic(self._byte_lens[idx].max(initial=0)))
+        return decode_pack_device(self._dt, idx, byte_len, rows, fill=fill,
+                                  transpose=transpose, shift=shift)
+
     def pack(self, idx, rows: int, fill: int, shift: bool = False):
+        if self._utf8:
+            lens = torch.from_numpy(self.lens[idx].astype(np.int32)).to(self._dt.device)
+            return self._decode(idx, rows - int(shift), fill, True, shift), lens
         offs, lens = self._dt.bucket_arrays(idx)
         return (pack_chars(self._packsrc.data, offs, lens,
                            row_len=rows - int(shift), transpose=True,
@@ -206,10 +242,12 @@ class _DeviceCollection:
 
     def chars(self, idx):
         """The int32 chars of strings ``idx`` (class ids for a class-cost
-        engine), end to end in one device tensor gathered from the blob,
+        engine, runes for a ``utf8`` one), end to end in one device tensor,
         and where each starts in it."""
         lens = self.lens[idx]
         offs = _offsets(lens)
+        if self._utf8:
+            return self._runes(idx, lens, offs), offs
         data = self._packsrc.data
         total = int(lens.sum())
         base = torch.from_numpy(self._dt.starts[idx] - offs).to(data.device)
@@ -218,11 +256,24 @@ class _DeviceCollection:
                + torch.arange(total, device=data.device))
         return data[pos].to(torch.int32), offs
 
+    def _runes(self, idx, lens, offs) -> torch.Tensor:
+        """The runes of strings ``idx`` end to end, decoded a byte-length
+        bucket at a time."""
+        dev = self._dt.device
+        out = torch.empty(int(lens.sum()), dtype=torch.int32, device=dev)
+        for sub in _group_dyadic(self._byte_lens[idx]).values():
+            block = self._decode(idx[sub], max(int(lens[sub].max()), 1), 0, False)
+            j = torch.arange(block.shape[1], device=dev)[None, :]
+            valid = j < torch.from_numpy(lens[sub]).to(dev)[:, None]
+            out[(torch.from_numpy(offs[sub]).to(dev)[:, None] + j)[valid]] = block[valid]
+        return out
+
 
 class _CrossProductEngine:
     """Shared host loop for all-pairs scoring."""
 
     result_dtype = np.int64
+    _utf8 = False  # chars are runes, decoded from UTF-8
 
     def __init__(self, cfg: SimilarityConfig):
         self._cfg = cfg
@@ -244,12 +295,12 @@ class _CrossProductEngine:
 
     def _collection(self, items, device: torch.device):
         try:
-            return _DeviceCollection(items, device, self._b2c)
+            return _DeviceCollection(items, device, self._b2c, self._utf8)
         except _HostFallback:
-            return _HostCollection(items, device, self._b2c)
+            return _HostCollection(items, device, self._b2c, self._utf8)
 
     def _score_long_pairs(self, qc, cc, q_long, c_long, result) -> None:
-        """Every pair touching a string over ``_LONG_THRESHOLD`` bytes, in
+        """Every pair touching a string over ``_LONG_THRESHOLD`` chars, in
         one batch, scattered into ``result`` (the JAX ``_score_long_pairs``,
         which runs them one launch per pair): unit-cost pairs through the
         band tier, the rest through the flat wavefront kernel. Class-cost
@@ -315,7 +366,8 @@ class _CrossProductEngine:
             c_rows = torch.from_numpy(c_idx).to(dev)[None, :]
             for q_rows, (q_t, qlens) in q_blocks:
                 args = (q_t, qlens.view(-1, 1), block_j, lens_j.view(1, -1))
-                result[q_rows, c_rows] = (myers(*args) if unit else
+                result[q_rows, c_rows] = (myers(*args, alphabet=None if self._utf8 else 256)
+                                          if unit else
                                           similarity(*args, self._cfg, table))
         return result
 
@@ -371,11 +423,12 @@ class LevenshteinDistances(_CrossProductEngine):
 
 
 class LevenshteinDistancesUTF8(LevenshteinDistances):
-    """Edit distances over Unicode codepoints (reference
-    ``levenshtein_distance_utf8``, ``serial.hpp:2800``): not ported yet."""
+    """Edit distances over Unicode codepoints rather than bytes (reference
+    ``levenshtein_distance_utf8``, ``serial.hpp:2800``), with any costs:
+    unit costs on the Myers kernel's rune route, others on the column DP,
+    pairs with a string over 4096 runes on the wavefront tier."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("LevenshteinDistancesUTF8", "LevenshteinDistancesUTF8")
+    _utf8 = True
 
 
 class _ScoreEngine(_CrossProductEngine):

@@ -3,7 +3,7 @@
 Counterpart of ``stringzilla_tpu/ops/myers_pallas.py``, with the same
 layouts at the public function, so the two are compared like with like:
 
-    myers(q_t, qlens, cands_t, clens) -> (n_queries, n_cands) int32
+    myers(q_t, qlens, cands_t, clens, alphabet=256) -> (n_queries, n_cands) int32
 
 * ``q_t``      ``(rows, n_queries)`` int32 query chars, padded with -1;
   ``rows`` is a multiple of 32 and at most 4096;
@@ -11,11 +11,19 @@ layouts at the public function, so the two are compared like with like:
 * ``cands_t``  ``(cand_len, n_cands)`` int32 candidate chars;
 * ``clens``    ``(1, n_cands)`` int32.
 
-Chars are bytes: a value outside ``[0, 256)`` matches nothing (the JAX
-kernel's ``alphabet=256`` contract). Each query of length m occupies
-``W = ceil(rows / 64)`` 64-bit words; its match table ``peq[c][w]`` (bit i
-set iff query char ``64 w + i == c``, the reference's 256-entry PEQ,
-``serial.hpp:2189``) is built here with torch ops and read by both versions.
+With ``alphabet=256`` chars are bytes: a value outside ``[0, 256)`` matches
+nothing (the JAX kernel's ``alphabet=256`` contract). Each query of length
+m occupies ``W = ceil(rows / 64)`` 64-bit words; its match table
+``peq[c][w]`` (bit i set iff query char ``64 w + i == c``, the reference's
+256-entry PEQ, ``serial.hpp:2189``) is built here with torch ops.
+
+With ``alphabet=None`` chars are runes (UTF-32 code points, or any int32
+values; the JAX kernel's ``alphabet=None``): equal values match, U+0000
+included, and the query padding -1 lies past the query's end. The kernel
+then reads each query's sorted distinct runes and a match table of one row
+per distinct rune (``_rune_peq``), and finds a candidate rune's row by
+binary search; the plain version compares runes directly.
+
 Per candidate char the recurrence is
 
     Xv = Eq | VN
@@ -43,7 +51,8 @@ MAX_ROWS = 4096  # longer queries wait for the wavefront tier
 _TIER_A_WORDS = 4  # csrc/myers.cu keeps up to 4 words per thread in registers
 
 # Launches of each CUDA kernel, counted where the wrapper launches it.
-KERNEL_LAUNCHES = {"myers_tier_a": 0, "myers_tier_b": 0}
+KERNEL_LAUNCHES = {"myers_tier_a": 0, "myers_tier_b": 0,
+                   "myers_tier_a_runes": 0, "myers_tier_b_runes": 0}
 
 _INT64_MIN = -(1 << 63)
 # Bit k as an int64 value (bit 63 is INT64_MIN), and the masks of bits [0, k).
@@ -56,7 +65,9 @@ def words_of(rows: int) -> int:
     return max(1, -(-rows // 64))
 
 
-def _check(q_t, qlens, cands_t, clens):
+def _check(q_t, qlens, cands_t, clens, alphabet):
+    if alphabet not in (256, None):
+        raise ValueError(f"alphabet must be 256 (bytes) or None (runes), not {alphabet}")
     for name, t in (("q_t", q_t), ("qlens", qlens), ("cands_t", cands_t),
                     ("clens", clens)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 2:
@@ -92,6 +103,45 @@ def _peq(q_t: torch.Tensor, qlens: torch.Tensor, words: int) -> torch.Tensor:
     return peq.view(nq, 256, words)
 
 
+def _rune_peq(q_t: torch.Tensor, qlens: torch.Tensor, words: int):
+    """The rune route's match tables: ``keys`` int32, each query's distinct
+    runes ascending (query q's are ``keys[key_offs[q]:key_offs[q + 1]]``),
+    ``key_offs`` int32 ``(n_queries + 1,)``, and ``peq`` int64
+    ``(len(keys), words)``, row k's bit i of word w set iff query char
+    ``64 w + i == keys[k]``. Chars past a query's length set no bit."""
+    rows, nq = q_t.shape
+    dev = q_t.device
+    i = torch.arange(rows, device=dev)[:, None].expand(rows, nq)
+    q = torch.arange(nq, device=dev)[None, :].expand(rows, nq)
+    valid = i < qlens.view(1, nq)
+    i, q = i[valid], q[valid]
+    # one sort key per (query, rune): queries apart, runes as signed int32
+    key = (q << 32) | (q_t[valid].long() + (1 << 31))
+    uniq, row = torch.unique(key, sorted=True, return_inverse=True)
+    keys = ((uniq & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+    key_offs = torch.zeros(nq + 1, dtype=torch.int32, device=dev)
+    key_offs[1:] = torch.cumsum(torch.bincount(uniq >> 32, minlength=nq), 0)
+    bits = torch.tensor(_BIT, dtype=torch.int64, device=dev)[i % 64]
+    peq = torch.zeros(max(uniq.numel(), 1) * words, dtype=torch.int64, device=dev)
+    # Distinct bits of one word never carry, so summing them is OR-ing them.
+    peq.index_put_((row * words + i // 64,), bits, accumulate=True)
+    return keys, key_offs, peq.view(-1, words)
+
+
+def _rune_eq(q_t: torch.Tensor, qlens: torch.Tensor, c: torch.Tensor, words: int):
+    """``(n_queries, n_cands, words)`` int64 match masks of candidate runes
+    ``c`` by direct comparison with every query rune."""
+    rows, nq = q_t.shape
+    dev = q_t.device
+    valid = torch.arange(64 * words, device=dev)[:, None] < qlens.view(1, nq).clamp(max=rows)
+    q = torch.cat([q_t, q_t.new_zeros(64 * words - rows, nq)])
+    hit = (q[:, :, None] == c[None, None, :]) & valid[:, :, None]
+    bits = torch.tensor(_BIT, dtype=torch.int64, device=dev).view(1, 64, 1, 1)
+    # Distinct bits of one word never carry, so summing them is OR-ing them.
+    eq = (hit.view(words, 64, nq, -1).long() * bits).sum(dim=1)
+    return eq.permute(1, 2, 0)
+
+
 def _uless(a, b):
     """Unsigned a < b on int64 (sign-flip trick)."""
     return (a ^ _INT64_MIN) < (b ^ _INT64_MIN)
@@ -115,18 +165,20 @@ def _shift_words(x, d: int, fill):
     return torch.cat([pad, x[..., :-d]], dim=-1)
 
 
-def myers_reference(q_t, qlens, cands_t, clens) -> torch.Tensor:
+def myers_reference(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same recurrence over an
     ``(n_queries, n_cands, W)`` int64 state, one candidate char per step,
-    with lanes frozen past their own candidate's end."""
-    _check(q_t, qlens, cands_t, clens)
+    with lanes frozen past their own candidate's end. Bytes read the PEQ;
+    runes are compared directly with every query rune."""
+    _check(q_t, qlens, cands_t, clens, alphabet)
     rows, nq = q_t.shape
     cand_len, nc = cands_t.shape
     dev = q_t.device
     words = words_of(rows)
-    peq = torch.cat([_peq(q_t, qlens, words),
-                     torch.zeros(nq, 1, words, dtype=torch.int64, device=dev)],
-                    dim=1)  # row 256: chars outside [0, 256) match nothing
+    if alphabet is not None:
+        peq = torch.cat([_peq(q_t, qlens, words),
+                         torch.zeros(nq, 1, words, dtype=torch.int64, device=dev)],
+                        dim=1)  # row 256: chars outside [0, 256) match nothing
     m = qlens.view(nq, 1, 1).long().clamp(0, 64 * words)
     w_idx = torch.arange(words, device=dev).view(1, 1, words)
     low = torch.tensor(_LOW, dtype=torch.int64, device=dev)
@@ -136,9 +188,11 @@ def myers_reference(q_t, qlens, cands_t, clens) -> torch.Tensor:
     vn = torch.zeros_like(vp)
     steps = int(n.max()) if nc else 0
     for j in range(steps):
-        c = cands_t[j].long()
-        c = torch.where((c >= 0) & (c < 256), c, 256)
-        eq = peq[:, c, :]
+        if alphabet is None:
+            eq = _rune_eq(q_t, qlens, cands_t[j], words)
+        else:
+            c = cands_t[j].long()
+            eq = peq[:, torch.where((c >= 0) & (c < 256), c, 256), :]
         xv = eq | vn
         t = eq & vp
         s = t + vp
@@ -165,12 +219,13 @@ def myers_reference(q_t, qlens, cands_t, clens) -> torch.Tensor:
     return (n + delta).to(torch.int32)
 
 
-def myers(q_t, qlens, cands_t, clens) -> torch.Tensor:
-    """All-pairs unit-cost edit distances ``(n_queries, n_cands) int32``:
-    the Hopper kernel for CUDA tensors, the plain version for CPU ones."""
-    _check(q_t, qlens, cands_t, clens)
+def myers(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
+    """All-pairs unit-cost edit distances ``(n_queries, n_cands) int32``
+    over bytes (``alphabet=256``) or runes (``alphabet=None``): the Hopper
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    _check(q_t, qlens, cands_t, clens, alphabet)
     if q_t.device.type == "cpu":
-        return myers_reference(q_t, qlens, cands_t, clens)
+        return myers_reference(q_t, qlens, cands_t, clens, alphabet)
     if q_t.device.type != "cuda":
         raise ValueError(f"myers runs on CUDA or CPU tensors, not {q_t.device}")
     rows, nq = q_t.shape
@@ -179,16 +234,23 @@ def myers(q_t, qlens, cands_t, clens) -> torch.Tensor:
     if nq == 0 or nc == 0:
         return out
     words = words_of(rows)
-    peq = _peq(q_t, qlens, words)
     lib = cuda_build.load()
     with torch.cuda.device(q_t.device):
         stream = torch.cuda.current_stream(q_t.device).cuda_stream
-        err = lib.sz_myers(peq.data_ptr(), words, qlens.data_ptr(), nq,
-                           cands_t.data_ptr(), clens.data_ptr(), cand_len, nc,
-                           out.data_ptr(), stream)
+        tail = (words, qlens.data_ptr(), nq, cands_t.data_ptr(), clens.data_ptr(),
+                cand_len, nc, out.data_ptr(), stream)
+        if alphabet is None:
+            keys, key_offs, peq = _rune_peq(q_t, qlens, words)
+            name = "sz_myers_runes"
+            err = lib.sz_myers_runes(keys.data_ptr(), key_offs.data_ptr(),
+                                     peq.data_ptr(), *tail)
+        else:
+            peq = _peq(q_t, qlens, words)
+            name = "sz_myers"
+            err = lib.sz_myers(peq.data_ptr(), *tail)
     if err != 0:
-        raise RuntimeError(f"sz_myers launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            f"{lib.sz_cuda_error_string(err).decode()} ({err})")
-    KERNEL_LAUNCHES["myers_tier_a" if words <= _TIER_A_WORDS
-                    else "myers_tier_b"] += 1
+    tier = "myers_tier_a" if words <= _TIER_A_WORDS else "myers_tier_b"
+    KERNEL_LAUNCHES[tier if alphabet is not None else tier + "_runes"] += 1
     return out

@@ -100,6 +100,8 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.sz_myers.argtypes = [p, i, p, i, p, p, i, i, p, p]
             lib.sz_myers.restype = i
+            lib.sz_myers_runes.argtypes = [p, p, p, i, p, i, p, p, i, i, p, p]
+            lib.sz_myers_runes.restype = i
             lib.sz_similarity.argtypes = [i] * 8 + [p, i, p, i, p, p] + [i] * 6 + [p, p, p, p]
             lib.sz_similarity.restype = i
             lib.sz_lookup.argtypes = [p, ctypes.c_size_t, p, p, i, p]
@@ -111,6 +113,8 @@ def load() -> ctypes.CDLL:
             lib.sz_wavefront.restype = i
             lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, p]
             lib.sz_wavefront_band.restype = i
+            lib.sz_fingerprints.argtypes = [p, p, p, i, p, p, p, p, i, p, p, p]
+            lib.sz_fingerprints.restype = i
             lib.sz_cuda_error_string.argtypes = [i]
             lib.sz_cuda_error_string.restype = ctypes.c_char_p
             _lib, _log_path = lib, so[:-3] + ".log"

@@ -99,8 +99,7 @@ def test_engine_str_input_dtype_and_errors():
     assert eng([], ["a"], device=CPU).shape == (0, 1)
     with pytest.raises(TypeError):
         eng([b"ab", 3], device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsz.LevenshteinDistancesUTF8()
+    assert tsz.LevenshteinDistancesUTF8()(["héllo"], ["hello"], device=CPU).tolist() == [[1]]
     # pairs over 4096 bytes run on the wavefront tier up to MAX_FLAT_CELLS
     assert eng([b"a" * 5000], [b"ab"], device=CPU).tolist() == [[4999]]
     assert tsz.LevenshteinDistances(mismatch=2)([b"ab"], [b"a" * 4097],
@@ -142,7 +141,10 @@ def test_multi_device_scope_is_not_ported(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, stringzilla_tpu_torch, stringzilla_tpu_torch.ops.wavefront; "
+    code = ("import sys, stringzilla_tpu_torch, stringzilla_tpu_torch.ops.wavefront, "
+            "stringzilla_tpu_torch.models.fingerprints, "
+            "stringzilla_tpu_torch.ops.fingerprints_kernel, "
+            "stringzilla_tpu_torch.ops.utf8_pack_device; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
