@@ -100,7 +100,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    host pull, and ``device_out`` plus ``band_keys(bands=16)``) and the
    plain versions; then one malformed collection through the host decode.
 
-Phases 4-4d also profile one engine call of each workload with
+3e. The same for the buffer tier's kernels: ``ops.find_kernel.
+   search_positions`` against ``search_positions_reference`` in every mode
+   (first, last, count) for needles of 1-16, 17, 130 and 5,000 bytes
+   planted at every chunk edge +- k, across the edges and at 0 and n - k,
+   with ``[lo, hi]`` windows at a chunk edge, ``lo > hi`` and ``lo < 0``,
+   on haystacks that are not 16-byte aligned, all hits, empty and shorter
+   than the needle, bytesets holding 0x00 and 0xFF and their inversions,
+   and a 64 MiB haystack whose hits in six chunks race for the early exit
+   (three runs); ``ops.utf8_device.validate_count_raw`` against
+   ``validate_count_reference`` (both numbers) on
+   ``tests/test_intersect_utf8.py``'s case list, 300 fuzzed buffers and 8
+   MiB of text with violations at CTA and grid-stride edges, a lead cut
+   off at the end, aligned and not. Exact equality.
+4e. Main path, the buffer tier: ``Str`` on
+   ``benches/bench_all.py::bench_find``'s haystack (2**30 random lowercase
+   bytes, seed 42, ``XqZwV`` at N - 4096, a 130-byte needle planted twice):
+   find, rfind, ``count(b"ab", allowoverlap=True)``, ``find_first_of``,
+   ``find_last_of``, the 130-byte needle both ways and with bounds; then
+   ``translate`` with the swapcase table on ``bench_lookup``'s 2**30 random
+   bytes; ``utf8_count`` and ``utf8_valid`` on
+   ``bench_utf8_count_device``'s 2**28-byte blob and on a 2 MiB invalid
+   buffer; ``File`` over a 256 MiB log file written under ``build/``
+   (find, count, utf8_count, rfind). Counts are reset before each of the
+   four paths and read after; ``find_search``, ``byte_lut`` and
+   ``utf8_validate_count`` must have launched. Each result must equal
+   Python's ``bytes`` methods or numpy on the same buffer. Then, on the
+   same 1 GiB mirror, ``search_positions`` must equal
+   ``search_positions_reference`` in every mode for both needles, the
+   130-byte one with and without bounds, and three bytesets (one
+   inverted); on the 256 MiB and the invalid 2 MiB mirrors,
+   ``validate_count_raw`` must equal ``validate_count_reference``. Times the
+   kernel alone, the ``Str`` call with the mirror cached, the first call
+   with the mirror's copy to the card, and the plain versions.
+
+Phases 4-4e also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it.
 
 Prints the card's name and power limit and one JSON line of per-kernel
@@ -141,6 +175,20 @@ FP_DOCS = (2048, 2048, 16385)  # web-page dedup: count, lengths in [lo, hi)
 FP_BIG = 3  # phase 3d's 64 KB docs
 UTF8_MIXED = (64, 8192)  # bench_levenshtein_utf8's shape
 UTF8_CJK = (64, 2048)  # 100-400 runes from 3,000 CJK code points
+# Phase 3e: the search kernel's haystack (four of its chunks and a ragged
+# end), the needle lengths, a bigger haystack whose hits in many chunks race
+# for the early exit, and the UTF-8 pass's buffer with violations at its
+# CTA and grid-stride edges
+FIND_CHECK = 4 * 65536 + 777
+FIND_KS = tuple(range(1, 17)) + (17, 130, 5000)
+FIND_RACE = 64 << 20
+UTF8_CHECK = 8 << 20
+# Phase 4e: benches/bench_all.py's bench_find and bench_lookup buffers,
+# bench_utf8_count_device's blob, and a log file
+FIND_BYTES = 1 << 30
+LOOKUP_BYTES = 1 << 30
+UTF8_BYTES = 1 << 28
+FILE_BYTES = 1 << 28
 
 # The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
 # multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused
@@ -159,6 +207,10 @@ MYERS_OPS_PER_WORD_STEP = 34
 # compare-and-corrects and the minimum's compare and select.
 F64_OPS_PER_S = 67e12 / 4
 FINGERPRINT_OPS_PER_STEP = 10
+# int32 ops a haystack byte: the search's SWAR first-byte filter, 9 a
+# 4-byte word; the UTF-8 pass's byte-wise compares and logic, ~36 a word.
+FIND_OPS_PER_BYTE = 2.25
+UTF8_OPS_PER_BYTE = 9
 
 
 def _dp_ops_per_cell(cfg) -> int:
@@ -1308,8 +1360,388 @@ def _utf8_main_path(dev, sync, report):
           "Wagner-Fischer over its U+FFFD runes")
 
 
+UTF8_CASES = [
+    b"", b"plain ascii", "héllo wörld".encode(), "日本語".encode(),
+    "emoji \U0001f389\U0001f38a".encode(), b"\x80", b"\xC0\xAF", b"\xC1\xBF",
+    b"\xE0\x80\x80", b"\xE0\xA0\x80", b"\xED\x9F\xBF", b"\xED\xA0\x80",
+    b"\xF0\x8F\xBF\xBF", b"\xF0\x90\x80\x80", b"\xF4\x8F\xBF\xBF", b"\xF4\x90\x80\x80",
+    b"\xF5\x80\x80\x80", b"\xFF", b"ok\xC3", b"ok\xE2\x82", "ab€cd".encode()[:-1],
+    b"\xC3\xA9" * 50,
+]  # tests/test_intersect_utf8.py's case list
+UTF8_POOL = (b"xyz", "é".encode(), "€".encode(), "\U0001f389".encode(),
+             b"\xC3", b"\x80", b"\xED\xA0\x80", b"\xF4\x90\x80\x80")
+
+
+def _check_find_kernel(dev, sync, max_err):
+    """Phase 3e: the streaming search against its plain version."""
+    import torch
+    from stringzilla_tpu_torch.ops.find import byteset_mask
+    from stringzilla_tpu_torch.ops.find_kernel import (CHUNK_POSITIONS, search_positions,
+                                                       search_positions_reference)
+
+    rng = np.random.default_rng(SEED + 20)
+    err, calls = 0, 0
+
+    def same(hay, n, what, modes=("first", "last", "count"), **kw):
+        nonlocal err, calls
+        for mode in modes:
+            got = int(search_positions(hay, n, mode, **kw))
+            want = int(search_positions_reference(hay, n, mode, **kw))
+            err = max(err, abs(got - want))
+            calls += 1
+            _check(got == want, f"find_search {mode} {what}: {got} != plain {want}")
+
+    def on_card(buf):
+        return torch.from_numpy(np.ascontiguousarray(buf)).to(dev)
+
+    n = FIND_CHECK
+    edges = list(range(CHUNK_POSITIONS, n, CHUNK_POSITIONS))
+    b1 = edges[0]
+    for k in FIND_KS:
+        needle = rng.integers(97, 123, k, dtype=np.uint8)
+        spots = {"edges+-k": [0, n - k] + [p for b in edges for p in (b - k, b + k)],
+                 "across edges": [b - max(k // 2, 1) for b in edges]}
+        for name, at in spots.items():
+            buf = rng.integers(97, 123, n + 16, dtype=np.uint8)
+            buf[n:] = 0
+            for p in at:
+                if 0 <= p <= n - k:
+                    buf[p: p + k] = needle
+            hay = on_card(buf)
+            for lo, hi in [(0, None), (1, None), (b1, b1), (b1 - k, b1 + k), (b1 + 1, b1 - 1),
+                           (CHUNK_POSITIONS - 1, n - k - 1), (-5, 3)]:
+                same(hay, n, f"k={k} {name} [{lo}, {hi}]", needle=needle, lo=lo, hi=hi)
+            if k in (1, 5, 17):  # a haystack that is not 16-byte aligned
+                same(on_card(np.concatenate([np.zeros(3, np.uint8), buf]))[3:], n,
+                     f"k={k} {name} unaligned", needle=needle)
+    for k in (1, 2, 16, 17, 130):  # every position a hit
+        hay = on_card(np.full(n, 97, np.uint8))
+        same(hay, n, f"k={k} all hits", needle=np.full(k, 97, np.uint8))
+        _check(int(search_positions(hay, n, "count", needle=np.full(k, 97, np.uint8))) == n - k + 1,
+               f"find_search k={k} all hits: count != {n - k + 1}")
+    empty = torch.zeros(16, dtype=torch.uint8, device=dev)
+    same(empty, 0, "empty buffer", needle=np.frombuffer(b"a", np.uint8))
+    same(empty, 3, "n < k", needle=np.zeros(5, np.uint8))
+
+    buf = rng.integers(97, 123, n + 16, dtype=np.uint8)
+    buf[n:] = 0
+    for j, b in enumerate(edges):
+        buf[b - 1 + (j % 2)] = 0 if j % 2 else 0xFF
+    buf[0], buf[n - 1] = 0xFF, 0
+    hay = on_card(buf)
+    for charset in (b"\x00", b"\xff", b"\x00\xffq", bytes(range(97, 123))):
+        words = byteset_mask(charset)
+        for w, name in ((words, "set"), (~words, "inverted set")):
+            for lo, hi in [(0, None), (b1 - 2, b1 + 1), (5, n - 2)]:
+                same(hay, n, f"{name} {charset!r} [{lo}, {hi}]", byteset_words=w, lo=lo, hi=hi)
+
+    race = rng.integers(97, 123, FIND_RACE, dtype=np.uint8)
+    needle = np.frombuffer(b"race!hit", np.uint8)
+    chunks = FIND_RACE // CHUNK_POSITIONS
+    for c in (3, 4, chunks // 3, chunks // 3 + 1, 2 * chunks // 3, chunks - 2):
+        p = c * CHUNK_POSITIONS - 4 + int(rng.integers(0, 9))
+        race[p: p + len(needle)] = needle
+    hay = on_card(race)
+    for _ in range(3):  # blocks claim chunks in a different order each time
+        same(hay, FIND_RACE, "hits in six chunks", needle=needle)
+    max_err["find_search"] = err
+    print(f"[kernel] find_search: needles of {len(FIND_KS)} lengths up to {max(FIND_KS)} "
+          f"bytes, bytesets, bounds, all-hit, empty, unaligned and racing haystacks: "
+          f"{calls} results exact")
+
+
+def _check_utf8_kernel(dev, sync, max_err):
+    """Phase 3e: the UTF-8 validation and count pass against its plain version."""
+    import torch
+    from stringzilla_tpu_torch.ops.utf8_device import validate_count_raw, validate_count_reference
+
+    rng = np.random.default_rng(SEED + 21)
+    err, calls = 0, 0
+
+    def same(mirror, n, what):
+        nonlocal err, calls
+        got = validate_count_raw(mirror, n).tolist()
+        want = validate_count_reference(mirror, n).tolist()
+        err = max(err, abs(got[0] - want[0]), abs(got[1] - want[1]))
+        calls += 1
+        _check(got == want, f"utf8_validate_count {what}: {got} != plain {want}")
+        return got
+
+    fuzz = [b"".join(UTF8_POOL[int(i)] for i in rng.integers(0, len(UTF8_POOL), int(m)))
+            for m in rng.integers(0, 40, 300)]
+    for buf in UTF8_CASES + fuzz:
+        mirror = torch.from_numpy(np.frombuffer(buf + bytes(16), np.uint8).copy()).to(dev)
+        got = same(mirror, len(buf), repr(buf[:16]))
+        try:
+            buf.decode("utf-8")
+            _check(got[0] == 0 and got[1] == len(buf.decode("utf-8")), f"valid {buf!r}: {got}")
+        except UnicodeDecodeError:
+            _check(got[0] > 0, f"invalid {buf!r} counted no violation")
+
+    pieces = [p for p in UTF8_POOL if p.decode("utf-8", "ignore").encode() == p]
+    text = bytearray(b"".join(pieces[int(i)] for i in rng.integers(0, len(pieces), UTF8_CHECK // 2)))
+    stride = 132 * 8 * 4096  # the grid-stride step on 132 SMs
+    edges = [4096 * j + d for j in (1, 2, 100, 1000) for d in (-3, -1, 0, 2)]
+    edges += [stride + d for d in (-2, 0, 1)] + [len(text) - 1]
+    big = bytes(text)
+    for at in edges:
+        text[at] = 0x80 if at % 2 else 0xF5
+    for name, buf in (("valid", big), ("violations at CTA and stride edges", bytes(text)),
+                      ("cut-off lead at the end", big + b"\xF0\x9F\x8E")):
+        mirror = torch.from_numpy(np.frombuffer(buf + bytes(16), np.uint8).copy()).to(dev)
+        got = same(mirror, len(buf), f"{len(buf)} bytes {name}")
+        _check((got[0] == 0) == (name == "valid"), f"utf8 {name}: violations {got[0]}")
+        same(mirror[1:], len(buf) - 1, f"{len(buf) - 1} bytes {name}, not 16-byte aligned")
+    max_err["utf8_validate_count"] = err
+    print(f"[kernel] utf8_validate_count: {calls} buffers (the UTF-8 case list, fuzz, "
+          f"{UTF8_CHECK >> 20} MiB with violations at CTA and stride edges) exact")
+
+
+def _buffer_main_path(dev, sync, report):
+    """Phase 4e: ``Str`` / ``File`` on benches/bench_all.py's buffers."""
+    import torch
+    import stringzilla_tpu_torch as szt
+    from stringzilla_tpu_torch.ops import find_kernel as find_mod
+    from stringzilla_tpu_torch.ops import memory as memory_mod
+    from stringzilla_tpu_torch.ops import utf8_device as utf8_mod
+    from stringzilla_tpu_torch.ops.find import byteset_mask
+    from stringzilla_tpu_torch.ops.find_kernel import search_positions, search_positions_reference
+    from stringzilla_tpu_torch.ops.memory import lookup_transform
+    from stringzilla_tpu_torch.ops.utf8_device import validate_count_raw, validate_count_reference
+
+    def held(kernel, what, cases, plain):
+        """Each case's kernel result against its plain version on the main
+        path's own buffer, exactly; returns the largest difference."""
+        err = 0
+        for name, args in cases.items():
+            got, want = kernel(*args).tolist(), plain(*args).tolist()
+            err = max(err, max(abs(a - b) for a, b in zip(np.ravel(got), np.ravel(want))))
+            _check(got == want, f"{kernel.__name__} {name} {what}: {got} != plain {want}")
+        print(f"[kernel] {kernel.__name__} on {what}: {len(cases)} results equal the plain "
+              f"version's")
+        return err
+
+    def host_ms(fn, runs=3):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / runs * 1e3
+
+    def first_call(make, call):
+        """A fresh ``Str``'s first call: the mirror's H2D and the search."""
+        sync()
+        t0 = time.perf_counter()
+        s = make()
+        out = call(s)
+        sync()
+        return s, out, (time.perf_counter() - t0) * 1e3
+
+    launches = {"find_search": 0, "utf8_validate_count": 0, "byte_lut": 0}
+
+    def path(name, counters, run):
+        _reset(*counters)
+        out = run()
+        got = {k: v for c in counters for k, v in c.items()}
+        print(f"[engine] launches on the {name} main path: {got}")
+        for k, v in got.items():
+            _check(v > 0, f"{name}: {k} was not launched on the main path")
+            launches[k] += v
+        return out
+
+    # -- find 1 GiB --------------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    n = FIND_BYTES
+    hay = rng.integers(97, 123, n, dtype=np.uint8)
+    hay[n - 4096: n - 4091] = np.frombuffer(b"XqZwV", np.uint8)
+    long = rng.integers(97, 123, 130, dtype=np.uint8)
+    for p in (n // 3, 2 * n // 3):
+        hay[p: p + 130] = long
+    data, needle, lb = hay.tobytes(), b"XqZwV", long.tobytes()
+    lo, hi = n // 3 + 1, 2 * n // 3 + 130
+    print(f"[setup] find: {n} random lowercase bytes in {time.perf_counter() - t0:.3f} s")
+    calls = {
+        "find": (lambda s: s.find(needle), lambda: data.find(needle)),
+        "rfind": (lambda s: s.rfind(needle), lambda: data.rfind(needle)),
+        "count ab": (lambda s: s.count(b"ab", allowoverlap=True), lambda: data.count(b"ab")),
+        "find_first_of": (lambda s: s.find_first_of(b"\n\r"),
+                          lambda: min((p for p in map(data.find, (b"\n", b"\r")) if p >= 0),
+                                      default=-1)),
+        "find_last_of": (lambda s: s.find_last_of(b" \t\n\r\x0b\x0c"),
+                         lambda: max(map(data.rfind, (b" ", b"\t", b"\n", b"\r", b"\x0b",
+                                                      b"\x0c")))),
+        "find 130": (lambda s: s.find(lb), lambda: data.find(lb)),
+        "rfind 130": (lambda s: s.rfind(lb), lambda: data.rfind(lb)),
+        "find 130 bounded": (lambda s: s.find(lb, lo, hi), lambda: data.find(lb, lo, hi)),
+        "rfind 130 bounded": (lambda s: s.rfind(lb, lo - 1, hi - 1),
+                              lambda: data.rfind(lb, lo - 1, hi - 1)),
+    }
+
+    def run_find():
+        s, first, first_ms = first_call(lambda: szt.Str(hay), calls["find"][0])
+        return s, first_ms, {name: fn(s) for name, (fn, _) in calls.items()}
+
+    s, first_ms, got = path("find", [find_mod.KERNEL_LAUNCHES], run_find)
+    for name, (_, oracle) in calls.items():
+        want = oracle()
+        _check(got[name] == want, f"Str.{name} on {n >> 20} MiB: {got[name]} != bytes {want}")
+    print(f"[engine] find {n >> 20} MiB: {len(calls)} Str calls equal Python's bytes: {got}")
+    mirror = s._device()
+    nd = np.frombuffer(needle, np.uint8)
+    hit = got["find"]
+    kernel_ms = _time_ms(lambda: search_positions(mirror, n, "first", needle=nd), 10, sync)
+    plain_ms = _time_ms(lambda: search_positions_reference(mirror, n, "first", needle=nd), 1, sync)
+    scanned = hit + len(needle)  # "first" reads up to its hit: here the whole buffer
+    bound_ms, bound_by = _bound(FIND_OPS_PER_BYTE * scanned, scanned)
+    _profile(f"Str.find {n >> 20} MiB", lambda: s.find(needle), sync)
+    print(f"[perf] find {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
+          f"kernel {kernel_ms:.4f} ms = {n / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, the hit at N - 4096 makes it a full scan)")
+    for name, (fn, _) in calls.items():
+        ms = host_ms(lambda: fn(s))
+        print(f"[perf] Str.{name} {n >> 20} MiB, mirror cached: {ms:.3f} ms = {n / ms / 1e6:.3f} GB/s")
+    words = {"first_of": (b"\n\r", "first"), "last_of": (b" \t\n\r\x0b\x0c", "last")}
+    for name, (charset, mode) in words.items():
+        ws = byteset_mask(charset)
+        ms = _time_ms(lambda: search_positions(mirror, n, mode, byteset_words=ws), 10, sync)
+        print(f"[perf] find_search byteset {name} {n >> 20} MiB: kernel {ms:.4f} ms = "
+              f"{n / ms / 1e6:.3f} GB/s")
+    # bytes the search must read: up to the hit and its needle ("first"),
+    # from the hit on ("last"), all of them (count). The 130-byte needle's
+    # first 16 bytes hit at the same place, with no needle to upload.
+    for name, args, scanned in (
+            ("130 first", ("first", long), got["find 130"] + len(lb)),
+            ("130's first 16 bytes, first", ("first", long[:16]), got["find 130"] + 16),
+            ("130 last", ("last", long), n - got["rfind 130"]),
+            ("count ab", ("count", np.frombuffer(b"ab", np.uint8)), n)):
+        ms = _time_ms(lambda: search_positions(mirror, n, args[0], needle=args[1]), 10, sync)
+        print(f"[perf] find_search {name} {n >> 20} MiB: kernel {ms:.4f} ms = {n / ms / 1e6:.3f} GB/s "
+              f"of the buffer; it must read {scanned} bytes: {scanned / ms / 1e6:.3f} GB/s of those "
+              f"(the full scan above: {n / kernel_ms / 1e6:.3f} GB/s)")
+    ab = np.frombuffer(b"ab", np.uint8)
+    err = held(search_positions, f"the {n >> 20} MiB mirror", {
+        f"{mode} {label}": (mirror, n, mode, *kw) for label, kw in (
+            ("XqZwV", (nd,)), ("ab", (ab,)), ("130", (long,)),
+            ("130 bounded", (long, None, lo, hi - 130)),
+            ("set \\n\\r", (None, byteset_mask(b"\n\r"))),
+            ("set whitespace", (None, byteset_mask(b" \t\n\r\x0b\x0c"))),
+            ("set not a-y", (None, ~byteset_mask(bytes(range(97, 122))))))
+        for mode in ("first", "last", "count")}, search_positions_reference)
+    report["find_search"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None, max_abs_err=err)
+    del s, mirror, data, hay
+
+    # -- lookup 1 GiB ------------------------------------------------------
+    n = LOOKUP_BYTES
+    buf = np.frombuffer(np.random.default_rng(SEED + 7).bytes(n), np.uint8)
+    lut = np.frombuffer(bytes(range(256)).swapcase(), np.uint8)
+    _, out_s, first_ms = path("lookup", [memory_mod.KERNEL_LAUNCHES],
+                              lambda: first_call(lambda: szt.Str(buf), lambda s: s.translate(lut)))
+    _check(np.array_equal(out_s._buf, lut[buf]), f"Str.translate {n >> 20} MiB != numpy lut[buf]")
+    s = szt.Str(buf)
+    mirror = s._device()
+    kernel_ms = _time_ms(lambda: lookup_transform(mirror[:n], lut), 10, sync)
+    call_ms = host_ms(lambda: s.translate(lut), runs=2)
+    print(f"[engine] translate {n >> 20} MiB equals numpy's lut[buf]")
+    print(f"[perf] translate {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
+          f"Str call, mirror cached, host pull included {call_ms:.3f} ms = "
+          f"{n / call_ms / 1e6:.3f} GB/s; byte_lut kernel {kernel_ms:.4f} ms = "
+          f"{2 * n / kernel_ms / 1e6:.3f} GB/s moved")
+    del s, mirror, out_s, buf
+
+    # -- UTF-8 256 MiB -----------------------------------------------------
+    n = UTF8_BYTES
+    blob = np.random.default_rng(SEED).integers(32, 127, n, dtype=np.uint8)
+    pos = np.arange(1000, n - 2, 4096)
+    blob[pos], blob[pos + 1] = 0xC3, 0xA9
+    bad = bytearray(blob[: 2 << 20].tobytes())
+    for p in (17, 70000, 1 << 20):
+        bad[p] = 0xFF
+    bad = bytes(bad) + b"\xE2\x82"
+
+    def run_utf8():
+        s, count, first_ms = first_call(lambda: szt.Str(blob), lambda s: s.utf8_count())
+        return s, count, first_ms, s.utf8_valid(), szt.Str(bad).utf8_count(), szt.Str(bad).utf8_valid()
+
+    s, count, first_ms, valid, bad_count, bad_valid = path(
+        "UTF-8", [utf8_mod.KERNEL_LAUNCHES], run_utf8)
+    text = blob.tobytes()
+    _check(valid and count == len(text.decode("utf-8")),
+           f"Str.utf8_count {n >> 20} MiB: {count}, valid {valid}")
+    _check(not bad_valid and bad_count == len(bad.decode("utf-8", "replace")),
+           f"invalid 2 MiB buffer: count {bad_count}, valid {bad_valid}")
+    print(f"[engine] UTF-8 {n >> 20} MiB: {count} runes and valid, as Python decodes it; an invalid "
+          f"2 MiB buffer: {bad_count} runes with U+FFFD, as errors='replace' decodes it")
+    mirror = s._device()
+    kernel_ms = _time_ms(lambda: validate_count_raw(mirror, n), 10, sync)
+    plain_ms = _time_ms(lambda: validate_count_reference(mirror, n), 1, sync)
+    call_ms = host_ms(lambda: s.utf8_count())
+    bound_ms, bound_by = _bound(UTF8_OPS_PER_BYTE * n, n)
+    print(f"[perf] utf8_count {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
+          f"Str call, mirror cached {call_ms:.3f} ms = {n / call_ms / 1e6:.3f} GB/s; kernel "
+          f"{kernel_ms:.4f} ms = {n / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    bad_s = szt.Str(bad)
+    err = held(validate_count_raw, f"the {n >> 20} MiB and the invalid 2 MiB mirrors", {
+        f"{n >> 20} MiB": (mirror, n), "invalid 2 MiB": (bad_s._device(), len(bad))},
+        validate_count_reference)
+    report["utf8_validate_count"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by, library_ms=None, max_abs_err=err)
+    del s, bad_s, mirror, text, blob
+
+    # -- a log file ----------------------------------------------------------
+    lines_rng = np.random.default_rng(SEED + 30)
+    levels = np.array([b"INFO", b"WARN", b"DEBUG", b"ERROR"])
+    lines = [b"2026-10-17T05:%02d:%02d.%03d %s worker-%d request id=%d took %d ms path=/api/v1/%s\n"
+             % (int(a), int(b), int(c), lv, int(w), int(i), int(t), p)
+             for a, b, c, lv, w, i, t, p in zip(
+                 *(lines_rng.integers(0, m, 4096) for m in (60, 60, 1000)),
+                 levels[lines_rng.integers(0, 4, 4096)], lines_rng.integers(0, 64, 4096),
+                 lines_rng.integers(0, 10**9, 4096), lines_rng.integers(0, 5000, 4096),
+                 [b"users", b"orders", "cafés".encode(), "数据".encode()] * 1024)]
+    body = b"".join(lines[int(i)] for i in lines_rng.integers(0, 4096, FILE_BYTES // 80))
+    body = (body[: body.index(b"\n", FILE_BYTES) + 1]
+            + b"2026-10-17T06:00:00.000 FATAL worker-9 out of memory\n")
+    path_name = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "chip_smoke_log.txt")
+    os.makedirs(os.path.dirname(path_name), exist_ok=True)
+    with open(path_name, "wb") as f:
+        f.write(body)
+    try:
+        def run_file():
+            f, fatal, first_ms = first_call(lambda: szt.File(path_name), lambda f: f.find(b"FATAL"))
+            return f, first_ms, (fatal, f.count(b"ERROR", allowoverlap=True), f.utf8_count(),
+                                 f.rfind(b"users"))
+
+        f, first_ms, got = path("File", [find_mod.KERNEL_LAUNCHES, utf8_mod.KERNEL_LAUNCHES],
+                                run_file)
+        want = (body.find(b"FATAL"), body.count(b"ERROR"), len(body.decode("utf-8")),
+                body.rfind(b"users"))
+        _check(got == want, f"File on {len(body)} bytes: {got} != bytes {want}")
+        call_ms = host_ms(lambda: f.find(b"FATAL"))
+        fatal = np.frombuffer(b"FATAL", np.uint8)
+        kernel_ms = _time_ms(lambda: search_positions(f._device(), len(f), "first",
+                                                      needle=fatal), 10, sync)
+        print(f"[engine] File {len(body)} bytes (log lines): find, count, utf8_count, rfind "
+              f"equal Python's bytes: {got}")
+        print(f"[perf] File.find FATAL {len(body)} bytes: first call with the mirror's H2D "
+              f"{first_ms:.3f} ms; mirror cached {call_ms:.3f} ms = "
+              f"{len(body) / call_ms / 1e6:.3f} GB/s; kernel {kernel_ms:.4f} ms = "
+              f"{len(body) / kernel_ms / 1e6:.3f} GB/s")
+        f.close()
+        _check(f._mirror is None, "File.close kept its mirror")
+    finally:
+        os.unlink(path_name)
+    for k in ("find_search", "utf8_validate_count"):
+        report[k]["launches"] = launches[k]
+    print(f"[engine] launches on the buffer tier's main path: {launches}")
+
+
 def run(dev) -> list:
-    """Phases 3-4d on ``dev``; returns each kernel's report entry."""
+    """Phases 3-4e on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
@@ -1321,11 +1753,14 @@ def run(dev) -> list:
     _check_band_kernel(dev, sync, max_err)
     _check_fingerprint_kernel(dev, sync, max_err)
     _check_rune_myers_kernel(dev, sync, max_err)
+    _check_find_kernel(dev, sync, max_err)
+    _check_utf8_kernel(dev, sync, max_err)
     _myers_main_path(dev, sync, report)
     _dp_main_path(dev, sync, report)
     _wavefront_main_path(dev, sync, report)
     _fingerprint_main_path(dev, sync, report)
     _utf8_main_path(dev, sync, report)
+    _buffer_main_path(dev, sync, report)
     replaces = {
         "myers_tier_a": ("stringzilla_tpu/ops/myers_pallas.py:396", "csrc/myers.cu"),
         "myers_tier_b": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
@@ -1340,6 +1775,8 @@ def run(dev) -> list:
                                 "csrc/fingerprints.cu"),
         "myers_tier_a_runes": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
         "myers_tier_b_runes": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
+        "find_search": ("stringzilla_tpu/ops/find_pallas.py:84", "csrc/find.cu"),
+        "utf8_validate_count": ("stringzilla_tpu/ops/utf8_device.py:68", "csrc/utf8.cu"),
     }
     return [{"name": k, "route": "cuda",
              "source": f"stringzilla_tpu_torch/{src}", "replaces": tpu,
@@ -1378,10 +1815,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-4d: kernels against plain versions, then the main paths ---
+    # -- phases 3-4e: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-4d in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-4e in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

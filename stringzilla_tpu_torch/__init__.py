@@ -18,11 +18,28 @@ Ported so far, on one device: ``LevenshteinDistances`` with any costs
 the byte-LUT kernel mapping bytes to cost classes), pairs with a string
 over 4096 chars on the wavefront kernels, ``LevenshteinDistancesUTF8``
 (the same engines over runes, the Myers kernel's rune route for unit
-costs) and ``Fingerprints`` (the MinHash kernel).
+costs) and ``Fingerprints`` (the MinHash kernel); the buffer tier
+(``Str``, ``File``, ``Strs`` and the module-level find, count, split,
+translate and UTF-8 functions), whose buffers of at least 1 MiB run the
+streaming-search, UTF-8 validation and byte-LUT kernels on the card; and
+the host hash functions.
 """
 
 from .models.device_scope import DeviceScope
 from .models.fingerprints import Fingerprints
+from .models.str_api import (
+    File,
+    FindSplits,
+    Str,
+    Strs,
+    Utf8Delimiters,
+    Utf8Newlines,
+    Utf8SplitDelimiters,
+    Utf8SplitNewlines,
+    Utf8SplitWhitespaces,
+    Utf8Whitespaces,
+    Utf8Wordbreaks,
+)
 from .models.similarities import (
     LevenshteinDistances,
     LevenshteinDistancesUTF8,
@@ -31,8 +48,84 @@ from .models.similarities import (
     SmithWaterman,
     SmithWatermanScores,
 )
+from .ops import utf8 as _u
+from .ops.hash import Hasher, bytesum, fill_random, hash_multiseed, random, sz_hash
 from .ops.tape import Tape
 from .utils import platform
+
+# Module-level function surface mirroring the reference binding
+# (``python/stringzilla.c:9531-9612``), as the JAX package routes it:
+# find/rfind/count/byteset search/split/translate go through ``Str``, so big
+# buffers take the same kernels as ``Str.find``.
+
+
+def _as_str(text) -> Str:
+    return text if isinstance(text, Str) else Str(text)
+
+
+def find(haystack, needle) -> int:
+    """Offset of the first occurrence, -1 if absent (``sz_find``)."""
+    return _as_str(haystack).find(needle)
+
+
+def rfind(haystack, needle) -> int:
+    """Offset of the last occurrence (``sz_rfind``)."""
+    return _as_str(haystack).rfind(needle)
+
+
+def count(haystack, needle, allowoverlap: bool = False) -> int:
+    """Occurrence count (non-overlapping by default, matching ``Str.count``
+    and the reference binding's ``sz.count``)."""
+    return _as_str(haystack).count(needle, allowoverlap=allowoverlap)
+
+
+def split(text, separator=b" ", maxsplit: int = -1, keepseparator: bool = False):
+    """Split into a zero-copy ``Strs`` view (binding ``Str.split``)."""
+    return _as_str(text).split(separator, maxsplit=maxsplit, keepseparator=keepseparator)
+
+
+def split_iter(text, separator=b" ", keepseparator: bool = False):
+    """Lazy split iterator (binding ``Str.split_iter``; ``find_splits_view``,
+    reference ``stringzilla.hpp:742``)."""
+    return _as_str(text).split_iter(separator, keepseparator=keepseparator)
+
+
+def splitlines(text, keeplinebreaks: bool = False):
+    return _as_str(text).splitlines(keeplinebreaks=keeplinebreaks)
+
+
+def translate(text, lut) -> bytes:
+    """256-byte LUT transform (``sz_lookup``; binding ``Str.translate``)."""
+    return bytes(_as_str(text).translate(lut))
+
+
+def count_byteset(text, charset) -> int:
+    """Module-level form of ``Str.count_byteset`` (reference binding)."""
+    return _as_str(text).count_byteset(charset)
+
+
+def utf8_valid(data) -> bool:
+    """Well-formed UTF-8 check (device pass for ``Str`` buffers of 1 MiB
+    and more)."""
+    from .ops.utf8_device import utf8_valid as _uv
+
+    return _uv(data)
+
+
+def find_byteset(text, charset) -> int:
+    """First byte ∈ set (``sz_find_byteset``), through ``Str`` as find is."""
+    return _as_str(text)._byteset_search(charset, "first", invert=False)
+
+
+def rfind_byteset(text, charset) -> int:
+    """Last byte ∈ set (``sz_rfind_byteset``)."""
+    return _as_str(text)._byteset_search(charset, "last", invert=False)
+
+
+hash = sz_hash  # noqa: A001 - intentional API parity with the reference
+lookup = translate
+utf8_count = _u.utf8_count
+utf8_decode = _u.utf8_decode
 
 __version__ = "0.1.0"
 
@@ -43,13 +136,45 @@ def __capabilities__():
 
 __all__ = [
     "DeviceScope",
+    "File",
+    "FindSplits",
     "Fingerprints",
+    "Hasher",
     "LevenshteinDistances",
     "LevenshteinDistancesUTF8",
     "NeedlemanWunsch",
     "NeedlemanWunschScores",
     "SmithWaterman",
     "SmithWatermanScores",
+    "Str",
+    "Strs",
     "Tape",
+    "Utf8Delimiters",
+    "Utf8Newlines",
+    "Utf8SplitDelimiters",
+    "Utf8SplitNewlines",
+    "Utf8SplitWhitespaces",
+    "Utf8Whitespaces",
+    "Utf8Wordbreaks",
     "__capabilities__",
+    "bytesum",
+    "count",
+    "count_byteset",
+    "fill_random",
+    "find",
+    "find_byteset",
+    "hash",
+    "hash_multiseed",
+    "lookup",
+    "random",
+    "rfind",
+    "rfind_byteset",
+    "split",
+    "split_iter",
+    "splitlines",
+    "sz_hash",
+    "translate",
+    "utf8_count",
+    "utf8_decode",
+    "utf8_valid",
 ]

@@ -47,6 +47,15 @@ class DeviceScope:
             device_index = 0
         self.device = platform.cuda_device(device_index)
 
+    @property
+    def device_count(self) -> int:
+        """Devices the scope spans: one, until scopes over several cards."""
+        return 1
+
+    @property
+    def is_single_device(self) -> bool:
+        return self.device_count == 1
+
     def get_capabilities(self) -> tuple[str, ...]:
         """Analog of ``szs_device_scope_get_capabilities``
         (reference ``stringzillas.h:148``)."""

@@ -59,9 +59,9 @@ class Fingerprints:
 
     def __call__(self, texts, device: DeviceScope | None = None,
                  out=None, device_out: bool = False):
-        """Min-hashes and count-mins of a collection (a list of ``str`` or
-        ``bytes``, or a ``Tape``): two ``(n, ndim) uint32`` numpy arrays, or
-        the given ``out=(hashes, counts)`` filled in place.
+        """Min-hashes and count-mins of a collection (a list of ``str``,
+        ``bytes`` or 1-D ndarrays, or a ``Tape``): two ``(n, ndim) uint32``
+        numpy arrays, or the given ``out=(hashes, counts)`` filled in place.
 
         ``device_out=True`` returns the same bits as two ``(n, ndim)`` int32
         tensors on the scope's device and pulls nothing: int32 because
@@ -69,7 +69,11 @@ class Fingerprints:
         ``.numpy().view(np.uint32)`` on the host is the host result; they
         are the input of ``ops.fingerprints.band_keys``."""
         dev = (device or default_device_scope()).device
-        tape = texts if isinstance(texts, Tape) else Tape.from_strings(texts)
+        # a 1-D ndarray item of any dtype is its raw bytes, as the JAX
+        # engine's bytes(item) takes it
+        tape = texts if isinstance(texts, Tape) else Tape.from_strings(
+            [s.tobytes() if isinstance(s, np.ndarray) and s.ndim == 1 else s
+             for s in texts])
         dt = device_tape(tape, dev)
         hashes, counts = fingerprint_all(
             dt.data, torch.from_numpy(dt.starts).to(dev),

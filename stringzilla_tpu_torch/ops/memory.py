@@ -30,7 +30,7 @@ KERNEL_LAUNCHES = {"byte_lut": 0}
 
 def _lut_on(lut, device: torch.device) -> torch.Tensor:
     if not isinstance(lut, torch.Tensor):
-        lut = torch.from_numpy(np.ascontiguousarray(lut, dtype=np.uint8))
+        lut = torch.from_numpy(np.array(lut, dtype=np.uint8))  # a copy: lut may be read-only
     if lut.dtype != torch.uint8 or lut.shape != (256,):
         raise ValueError(f"lut must be 256 uint8 values, got {lut.dtype} {tuple(lut.shape)}")
     return lut.to(device).contiguous()

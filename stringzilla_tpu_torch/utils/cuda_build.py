@@ -115,6 +115,10 @@ def load() -> ctypes.CDLL:
             lib.sz_wavefront_band.restype = i
             lib.sz_fingerprints.argtypes = [p, p, p, i, p, p, p, p, i, p, p, p]
             lib.sz_fingerprints.restype = i
+            lib.sz_find_search.argtypes = [p, ll, i, i, p, p, ll, p, ll, ll, p, i, p]
+            lib.sz_find_search.restype = i
+            lib.sz_utf8_validate_count.argtypes = [p, ll, p, i, p]
+            lib.sz_utf8_validate_count.restype = i
             lib.sz_cuda_error_string.argtypes = [i]
             lib.sz_cuda_error_string.restype = ctypes.c_char_p
             _lib, _log_path = lib, so[:-3] + ".log"

@@ -140,12 +140,25 @@ def test_multi_device_scope_is_not_ported(monkeypatch):
     assert device_scope.DeviceScope(gpu_device=3).device == torch.device("cuda", 3)
 
 
+def test_one_card_scope_counts_one_device():
+    """The port's one-card scope beside the JAX scope over one device."""
+    want = jsz.DeviceScope(device_index=0)
+    for scope in (CPU, device_scope.DeviceScope(device="cpu")):
+        assert scope.device_count == want.device_count == 1
+        assert scope.is_single_device is want.is_single_device is True
+
+
 def test_port_imports_no_jax():
     code = ("import sys, stringzilla_tpu_torch, stringzilla_tpu_torch.ops.wavefront, "
             "stringzilla_tpu_torch.models.fingerprints, "
             "stringzilla_tpu_torch.ops.fingerprints_kernel, "
-            "stringzilla_tpu_torch.ops.utf8_pack_device; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "stringzilla_tpu_torch.ops.utf8_pack_device, "
+            "stringzilla_tpu_torch.models.str_api, stringzilla_tpu_torch.ops.find, "
+            "stringzilla_tpu_torch.ops.find_kernel, stringzilla_tpu_torch.ops.utf8_device, "
+            "stringzilla_tpu_torch.ops.utf8, stringzilla_tpu_torch.ops.hash; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m.split('.')[0] == 'stringzilla_tpu' for m in sys.modules), "
+            "'stringzilla_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -97,6 +97,22 @@ def test_engine_matches_jax(ndim, widths):
         np.testing.assert_array_equal(got_c[i], oc)
 
 
+def test_ndarray_items_are_their_raw_bytes():
+    """A 1-D ndarray item of any dtype is hashed as its raw bytes, as the
+    JAX engine's ``bytes(item)`` takes it (129-256 bytes: one JAX bucket)."""
+    rng = _rng(7)
+    docs = [rng.integers(0, 2**31, 40).astype(np.int32),
+            rng.integers(0, 2**16, 100).astype(np.uint16),
+            rng.integers(0, 256, 200, dtype=np.uint8).tobytes()]
+    got_h, got_c = tsz.Fingerprints(64, seed=3)(docs, device=CPU)
+    want_h, want_c = jsz.Fingerprints(64, seed=3)(docs)
+    np.testing.assert_array_equal(got_h, want_h)
+    np.testing.assert_array_equal(got_c, want_c)
+    raw_h, raw_c = tsz.Fingerprints(64, seed=3)([d.tobytes() for d in docs[:2]], device=CPU)
+    np.testing.assert_array_equal(got_h[:2], raw_h)
+    np.testing.assert_array_equal(got_c[:2], raw_c)
+
+
 def _golden_groups():
     groups = {}
     for case in json.load(open(GOLDEN)):
