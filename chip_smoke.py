@@ -134,8 +134,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel alone, the ``Str`` call with the mirror cached, the first call
    with the mirror's copy to the card, and the plain versions.
 
-Phases 4-4e also profile one engine call of each workload with
-``torch.profiler`` and print the device's idle share of it.
+3f. The same for the hash kernels (``csrc/hash.cu``): ``ops.hash_kernel.
+   hash_short`` against ``hash_short_reference`` on every length 0-64 at
+   odd offsets in blobs 0 and 1 byte past a 16-byte boundary, with seeds
+   0, 42, 2**63 + 9 and 2**64 - 1 (where seed + length carries into the
+   high word), and on 2**19 + 777 tokens (grid-stride loops); ``hash_long``
+   against ``hash_long_reference`` on every length 65-300, 64k - 1, 64k and
+   64k + 1 for k up to 16 and ``benches/tpu_sweep.py``'s 8 and 16 KiB
+   buckets, at the same seeds, and on one 3 MiB string against the host
+   ``sz_hash``; ``ops.aes_kernel.fill_random_device`` against
+   ``fill_random_reference`` and the host ``fill_random`` at lengths 1,
+   15, 16, 17, 5000, 40000 and 2**24 with nonces 0, 123456789, 2**63 + 9
+   and 2**64 - 3 (the counter wraps); then every vector of
+   ``tests/golden/hash_vectors.json`` through ``hash_batch_device`` and
+   ``fill_random_device``. Sampled strings of each case also against the
+   host ``sz_hash``. Exact equality.
+4f. Main path, hashing and set operations: ``intersect`` on
+   ``benches/bench_all.py::bench_hash_tokens``'s shape (2**20 tokens of
+   4-12 lowercase bytes a side, seed 42, half of the second drawn from the
+   first and shuffled), ``Strs.hashes`` on phase 4e's 256 MiB log ``File``
+   split into lines (every line but the last over 64 bytes) and on the
+   words of its first 64 MiB, ``hash_batch_device`` on ``bench_crypto_e2e``'s
+   1,000 x 100 KB random documents plus one 3 MiB string,
+   ``fill_random_device(2**28, 42)``, ``sha256_batch`` on ``bench_sha256``'s
+   2**16 tokens of 4-47 bytes and ``tpu_sweep``'s 61 messages, and
+   ``Strs.sort`` and ``argsort_strings(..., prefer_device=True)`` on 2**20
+   of the words, all with no ``device=``. Counts are reset before each of
+   the five kernel paths and read after; ``hash_short``, ``hash_long`` and
+   ``fill_random`` must have launched. ``intersect`` must equal Python's
+   sets (first occurrences), ``Strs.hashes`` the plain versions on the
+   card over the whole collection and the host ``hash_batch`` on 10,000
+   sampled strings (a second call must reuse the mirror), documents the
+   host ``sz_hash`` on samples, ``fill_random`` its plain version on the
+   card, ``sha256_batch`` ``hashlib`` and the sorts Python's ``sorted``.
+   Times each kernel alone, the calls with their host parts (``intersect``
+   split into ``_distinct``, hashing, device sort and match, and the exact
+   check), the plain versions, ``sha256_batch`` and ``torch.sort``.
+
+Phases 4-4f also profile one engine call of each workload with
+``torch.profiler`` and print the device's idle share of it, and every
+phase prints its time.
 
 Prints the card's name and power limit and one JSON line of per-kernel
 results (time, plain time, launches on the main path, bound by the card's
@@ -189,6 +227,17 @@ FIND_BYTES = 1 << 30
 LOOKUP_BYTES = 1 << 30
 UTF8_BYTES = 1 << 28
 FILE_BYTES = 1 << 28
+# Phase 4f: bench_hash_tokens' 2^20 tokens a side, the log file's first
+# 64 MiB split on spaces, bench_crypto_e2e's documents, bench_fill_random's
+# buffer, bench_sha256's tokens and BENCH_NOTES.md's "argsort ~1M words".
+INTERSECT_TOKENS = 1 << 20
+HASH_SAMPLE = 10_000  # strings checked against the host hash
+WORDS_BYTES = 64 << 20
+DOCS = (1000, 100_000)
+DOC_BIG = 3 << 20
+FILL_BYTES = 1 << 28
+SHA_TOKENS = 1 << 16
+SORT_WORDS = 1 << 20
 
 # The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
 # multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused
@@ -211,6 +260,11 @@ FINGERPRINT_OPS_PER_STEP = 10
 # 4-byte word; the UTF-8 pass's byte-wise compares and logic, ~36 a word.
 FIND_OPS_PER_BYTE = 2.25
 UTF8_OPS_PER_BYTE = 9
+# int32 ops of the AES kernels as written: one AESENC is 16 table loads,
+# 16 byte extracts and 16 xors; a sum-lane update 16 byte moves and two
+# 64-bit adds (4 int32 ops); a block absorbed is one of each.
+AES_OPS = 48
+BLOCK_OPS = AES_OPS + 20
 
 
 def _dp_ops_per_cell(cfg) -> int:
@@ -365,6 +419,31 @@ def _reset(*counters):
     for counts in counters:
         for k in counts:
             counts[k] = 0
+
+
+def _launched(name, counters, expect, run, launches):
+    """Runs one main path with the launch counts set to 0 just before it;
+    checks that every kernel of ``expect`` launched and adds the counts up."""
+    _reset(*counters)
+    out = run()
+    got = {k: v for c in counters for k, v in c.items()}
+    print(f"[engine] launches on the {name} main path: {got}")
+    for k in expect:
+        _check(got[k] > 0, f"{name}: {k} was not launched on the main path")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    return out
+
+
+def _host_ms(fn, sync, runs=3):
+    """Mean host-clock time of ``fn`` (synchronised) in ms."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / runs * 1e3
 
 
 def _check_myers_kernel(dev, sync, max_err):
@@ -1497,6 +1576,31 @@ def _check_utf8_kernel(dev, sync, max_err):
           f"{UTF8_CHECK >> 20} MiB with violations at CTA and stride edges) exact")
 
 
+def _log_path() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_log.txt")
+
+
+def _write_log(path_name) -> bytes:
+    """Writes the FILE_BYTES log of phases 4e and 4f (lines of ~90 bytes,
+    seed SEED + 30) to ``path_name``; returns its bytes. The caller unlinks it."""
+    lines_rng = np.random.default_rng(SEED + 30)
+    levels = np.array([b"INFO", b"WARN", b"DEBUG", b"ERROR"])
+    lines = [b"2026-10-17T05:%02d:%02d.%03d %s worker-%d request id=%d took %d ms path=/api/v1/%s\n"
+             % (int(a), int(b), int(c), lv, int(w), int(i), int(t), p)
+             for a, b, c, lv, w, i, t, p in zip(
+                 *(lines_rng.integers(0, m, 4096) for m in (60, 60, 1000)),
+                 levels[lines_rng.integers(0, 4, 4096)], lines_rng.integers(0, 64, 4096),
+                 lines_rng.integers(0, 10**9, 4096), lines_rng.integers(0, 5000, 4096),
+                 [b"users", b"orders", "cafés".encode(), "数据".encode()] * 1024)]
+    body = b"".join(lines[int(i)] for i in lines_rng.integers(0, 4096, FILE_BYTES // 80))
+    body = (body[: body.index(b"\n", FILE_BYTES) + 1]
+            + b"2026-10-17T06:00:00.000 FATAL worker-9 out of memory\n")
+    os.makedirs(os.path.dirname(path_name), exist_ok=True)
+    with open(path_name, "wb") as f:
+        f.write(body)
+    return body
+
+
 def _buffer_main_path(dev, sync, report):
     """Phase 4e: ``Str`` / ``File`` on benches/bench_all.py's buffers."""
     import torch
@@ -1521,15 +1625,6 @@ def _buffer_main_path(dev, sync, report):
               f"version's")
         return err
 
-    def host_ms(fn, runs=3):
-        fn()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        sync()
-        return (time.perf_counter() - t0) / runs * 1e3
-
     def first_call(make, call):
         """A fresh ``Str``'s first call: the mirror's H2D and the search."""
         sync()
@@ -1539,17 +1634,10 @@ def _buffer_main_path(dev, sync, report):
         sync()
         return s, out, (time.perf_counter() - t0) * 1e3
 
-    launches = {"find_search": 0, "utf8_validate_count": 0, "byte_lut": 0}
+    launches = {}
 
     def path(name, counters, run):
-        _reset(*counters)
-        out = run()
-        got = {k: v for c in counters for k, v in c.items()}
-        print(f"[engine] launches on the {name} main path: {got}")
-        for k, v in got.items():
-            _check(v > 0, f"{name}: {k} was not launched on the main path")
-            launches[k] += v
-        return out
+        return _launched(name, counters, [k for c in counters for k in c], run, launches)
 
     # -- find 1 GiB --------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -1601,7 +1689,7 @@ def _buffer_main_path(dev, sync, report):
           f"kernel {kernel_ms:.4f} ms = {n / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; "
           f"bound {bound_ms:.4f} ms ({bound_by}, the hit at N - 4096 makes it a full scan)")
     for name, (fn, _) in calls.items():
-        ms = host_ms(lambda: fn(s))
+        ms = _host_ms(lambda: fn(s), sync)
         print(f"[perf] Str.{name} {n >> 20} MiB, mirror cached: {ms:.3f} ms = {n / ms / 1e6:.3f} GB/s")
     words = {"first_of": (b"\n\r", "first"), "last_of": (b" \t\n\r\x0b\x0c", "last")}
     for name, (charset, mode) in words.items():
@@ -1644,7 +1732,7 @@ def _buffer_main_path(dev, sync, report):
     s = szt.Str(buf)
     mirror = s._device()
     kernel_ms = _time_ms(lambda: lookup_transform(mirror[:n], lut), 10, sync)
-    call_ms = host_ms(lambda: s.translate(lut), runs=2)
+    call_ms = _host_ms(lambda: s.translate(lut), sync, runs=2)
     print(f"[engine] translate {n >> 20} MiB equals numpy's lut[buf]")
     print(f"[perf] translate {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
           f"Str call, mirror cached, host pull included {call_ms:.3f} ms = "
@@ -1678,7 +1766,7 @@ def _buffer_main_path(dev, sync, report):
     mirror = s._device()
     kernel_ms = _time_ms(lambda: validate_count_raw(mirror, n), 10, sync)
     plain_ms = _time_ms(lambda: validate_count_reference(mirror, n), 1, sync)
-    call_ms = host_ms(lambda: s.utf8_count())
+    call_ms = _host_ms(lambda: s.utf8_count(), sync)
     bound_ms, bound_by = _bound(UTF8_OPS_PER_BYTE * n, n)
     print(f"[perf] utf8_count {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
           f"Str call, mirror cached {call_ms:.3f} ms = {n / call_ms / 1e6:.3f} GB/s; kernel "
@@ -1693,23 +1781,8 @@ def _buffer_main_path(dev, sync, report):
     del s, bad_s, mirror, text, blob
 
     # -- a log file ----------------------------------------------------------
-    lines_rng = np.random.default_rng(SEED + 30)
-    levels = np.array([b"INFO", b"WARN", b"DEBUG", b"ERROR"])
-    lines = [b"2026-10-17T05:%02d:%02d.%03d %s worker-%d request id=%d took %d ms path=/api/v1/%s\n"
-             % (int(a), int(b), int(c), lv, int(w), int(i), int(t), p)
-             for a, b, c, lv, w, i, t, p in zip(
-                 *(lines_rng.integers(0, m, 4096) for m in (60, 60, 1000)),
-                 levels[lines_rng.integers(0, 4, 4096)], lines_rng.integers(0, 64, 4096),
-                 lines_rng.integers(0, 10**9, 4096), lines_rng.integers(0, 5000, 4096),
-                 [b"users", b"orders", "cafés".encode(), "数据".encode()] * 1024)]
-    body = b"".join(lines[int(i)] for i in lines_rng.integers(0, 4096, FILE_BYTES // 80))
-    body = (body[: body.index(b"\n", FILE_BYTES) + 1]
-            + b"2026-10-17T06:00:00.000 FATAL worker-9 out of memory\n")
-    path_name = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                             "chip_smoke_log.txt")
-    os.makedirs(os.path.dirname(path_name), exist_ok=True)
-    with open(path_name, "wb") as f:
-        f.write(body)
+    path_name = _log_path()
+    body = _write_log(path_name)
     try:
         def run_file():
             f, fatal, first_ms = first_call(lambda: szt.File(path_name), lambda f: f.find(b"FATAL"))
@@ -1721,7 +1794,7 @@ def _buffer_main_path(dev, sync, report):
         want = (body.find(b"FATAL"), body.count(b"ERROR"), len(body.decode("utf-8")),
                 body.rfind(b"users"))
         _check(got == want, f"File on {len(body)} bytes: {got} != bytes {want}")
-        call_ms = host_ms(lambda: f.find(b"FATAL"))
+        call_ms = _host_ms(lambda: f.find(b"FATAL"), sync)
         fatal = np.frombuffer(b"FATAL", np.uint8)
         kernel_ms = _time_ms(lambda: search_positions(f._device(), len(f), "first",
                                                       needle=fatal), 10, sync)
@@ -1740,27 +1813,395 @@ def _buffer_main_path(dev, sync, report):
     print(f"[engine] launches on the buffer tier's main path: {launches}")
 
 
+# -- phases 3f and 4f: hashing and set operations ------------------------------
+
+def _hash_ops(lengths) -> float:
+    """int32 operations the hash kernels need for strings of these lengths:
+    a block absorbed is an AESENC and a sum-lane update; a short string ends
+    with three AESENC, a long one with four lanes' final blocks and nine."""
+    lengths = np.asarray(lengths, np.int64)
+    short = lengths <= 64
+    blocks = np.maximum((lengths[short] + 15) // 16, 1)
+    full = (lengths[~short] - 1) // 64
+    return float(BLOCK_OPS * blocks.sum() + 3 * AES_OPS * short.sum()
+                 + 4 * BLOCK_OPS * (full + 1).sum() + 9 * AES_OPS * (~short).sum())
+
+
+def _hash_bytes(lengths) -> float:
+    """Bytes the hash kernels must move: each string once, its start and
+    length (int64) and its digest (8 bytes)."""
+    return float(np.sum(lengths, dtype=np.int64) + 24 * len(lengths))
+
+
+def _digests_err(got, want) -> int:
+    """Largest |got - want| over u64 digests given as int64 bits (0 when equal)."""
+    got, want = np.asarray(got).view(np.uint64), np.asarray(want).view(np.uint64)
+    bad = np.nonzero(got != want)[0]
+    return max((abs(int(got[i]) - int(want[i])) for i in bad), default=0)
+
+
+def _on_card_tape(rng, lengths, dev, skew=0):
+    """Strings of these lengths at odd offsets (0-3 junk bytes before each)
+    in one blob on the card, ``skew`` bytes past a 16-byte boundary, with one
+    trailing byte; returns (blob, starts, lengths) tensors and the host bytes."""
+    import torch
+
+    lengths = np.asarray(lengths, np.int64)
+    gaps = rng.integers(0, 4, len(lengths))
+    starts = np.cumsum(gaps) + np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    total = int(starts[-1] + lengths[-1]) + 1 if len(lengths) else 1
+    host = rng.integers(0, 256, total, dtype=np.uint8)
+    blob = torch.zeros(total + skew, dtype=torch.uint8, device=dev)[skew:]
+    blob.copy_(torch.from_numpy(host))
+    return (blob, torch.from_numpy(starts).to(dev), torch.from_numpy(lengths).to(dev), host,
+            starts)
+
+
+def _check_hash_kernels(dev, sync, max_err):
+    """Phase 3f: hash_short, hash_long and fill_random against their plain
+    versions on the card, and against the host hash and golden vectors."""
+    import torch
+    from stringzilla_tpu_torch.ops import hash as host_hash
+    from stringzilla_tpu_torch.ops.aes_kernel import fill_random_device, fill_random_reference
+    from stringzilla_tpu_torch.ops.hash_kernel import (hash_batch_device, hash_long,
+                                                       hash_long_reference, hash_short,
+                                                       hash_short_reference)
+
+    rng = np.random.default_rng(SEED + 40)
+    err = {"hash_short": 0, "hash_long": 0, "fill_random": 0}
+    calls = dict.fromkeys(err, 0)
+    seeds = (0, 42, 2**63 + 9, 2**64 - 1)
+
+    def same(name, kernel, plain, tape, seed, what, host=True):
+        blob, starts, lengths, buf, st = tape
+        got = kernel(blob, starts, lengths, seed).cpu().numpy()
+        want = plain(blob, starts, lengths, seed).cpu().numpy()
+        err[name] = max(err[name], _digests_err(got, want))
+        calls[name] += 1
+        _check(np.array_equal(got, want), f"{name} {what} seed {seed}: differs from plain")
+        if host:  # the strings of this kernel's path against the host sz_hash
+            lens = lengths.cpu().numpy()
+            mine = (lens <= 64) if name == "hash_short" else (lens > 64)
+            for i in np.nonzero(mine)[0][::max(1, int(mine.sum()) // 300)]:
+                s = buf[st[i]: st[i] + lens[i]].tobytes()
+                _check(int(got.view(np.uint64)[i]) == int(host_hash.hash_multiseed(s, [seed])[0]),
+                       f"{name} {what} seed {seed}: string {i} of {lens[i]} B != host sz_hash")
+        return got
+
+    short_lens = list(range(0, 65)) + [65, 200]  # the long two stay 0
+    for seed in seeds:
+        for skew in (0, 1):
+            same("hash_short", hash_short, hash_short_reference,
+                 _on_card_tape(rng, short_lens, dev, skew), seed, f"lengths 0-64 skew {skew}")
+    many = rng.integers(0, 65, (1 << 19) + 777)
+    same("hash_short", hash_short, hash_short_reference, _on_card_tape(rng, many, dev, 3), 42,
+         f"{len(many)} tokens")
+
+    long_lens = (list(range(65, 301)) + [64 * k + d for k in range(2, 17) for d in (-1, 0, 1)]
+                 + list(rng.integers(64 * 64 + 1, 64 * 128 + 63, 12))  # the 8 KiB bucket
+                 + list(rng.integers(64 * 128 + 1, 64 * 256 + 63, 12)) + [5, 64])  # 16 KiB
+    for seed in seeds:
+        same("hash_long", hash_long, hash_long_reference,
+             _on_card_tape(rng, long_lens, dev, int(seed % 3)), seed, "lengths 65-16447")
+    big = _on_card_tape(rng, [3 << 20], dev, 1)
+    got = hash_long(*big[:3], 7).cpu().numpy().view(np.uint64)
+    want = host_hash.hash_multiseed(big[3][big[4][0]: big[4][0] + (3 << 20)].tobytes(), [7])[0]
+    err["hash_long"] = max(err["hash_long"], abs(int(got[0]) - int(want)))
+    _check(int(got[0]) == int(want), "hash_long on a 3 MiB string != host sz_hash")
+
+    for length in (1, 15, 16, 17, 5000, 40000, 1 << 24):
+        for nonce in (0, 123456789, 2**63 + 9, 2**64 - 3):
+            got = fill_random_device(length, nonce, dev)
+            want = fill_random_reference(length, nonce, dev)
+            calls["fill_random"] += 1
+            same_bytes = torch.equal(got, want)
+            if not same_bytes:
+                err["fill_random"] = max(err["fill_random"],
+                                         int((got.int() - want.int()).abs().max()))
+            _check(same_bytes and bytes(got.cpu().numpy()) == host_hash.fill_random(length, nonce),
+                   f"fill_random {length} bytes nonce {nonce}: differs from plain or host")
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                           "hash_vectors.json")) as f:
+        golden = json.load(f)
+    data = bytes(golden["input"])
+    for seed in sorted({int(s) for _, s, _ in golden["hash"]}):
+        cases = [(n, int(e)) for n, s, e in golden["hash"] if int(s) == seed]
+        got = hash_batch_device([data[:n] for n, _ in cases], seed, device=dev)
+        _check([int(g) for g in got] == [e for _, e in cases], f"golden sz_hash seed {seed}")
+    for length, nonce, expected in golden["fill_random"]:
+        _check(fill_random_device(length, int(nonce), dev).tolist() == expected,
+               f"golden fill_random {length} nonce {nonce}")
+    max_err.update(err)
+    print(f"[kernel] hash_short: lengths 0-64 at odd offsets, 4 seeds (carry into the high "
+          f"word), {len(many)} tokens: {calls['hash_short']} launches equal the plain version")
+    print(f"[kernel] hash_long: lengths 65-300, 64k-1..64k+1, the 8/16 KiB buckets, 4 seeds: "
+          f"{calls['hash_long']} launches equal the plain version; a 3 MiB string equals the host")
+    print(f"[kernel] fill_random: 7 lengths x 4 nonces (one wraps the counter): "
+          f"{calls['fill_random']} buffers equal the plain version and the host; "
+          f"{len(golden['hash'])} + {len(golden['fill_random'])} golden vectors exact")
+
+
+def _hash_main_path(dev, sync, report):
+    """Phase 4f: intersect, Strs.hashes, documents, fill_random, SHA-256 and sort."""
+    import hashlib
+
+    import torch
+    import stringzilla_tpu_torch as szt
+    from stringzilla_tpu_torch.ops import aes_kernel, hash_kernel
+    from stringzilla_tpu_torch.ops import hash as host_hash
+    from stringzilla_tpu_torch.ops import intersect as ix
+    from stringzilla_tpu_torch.ops import sort as sort_mod
+    from stringzilla_tpu_torch.ops.pack_device import device_tape
+    from stringzilla_tpu_torch.ops.sha256 import sha256_batch
+    from stringzilla_tpu_torch.ops.tape import Tape
+
+    counters = [hash_kernel.KERNEL_LAUNCHES, aes_kernel.KERNEL_LAUNCHES]
+    launches = {}
+
+    def raw_args(dt):
+        return (dt.data, torch.from_numpy(dt.starts).to(dev), torch.from_numpy(dt.lengths).to(dev))
+
+    # -- intersect: bench_hash_tokens' tokens ----------------------------------
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+
+    def tokens(count):
+        lens = rng.integers(4, 13, count)
+        blob = rng.integers(97, 123, int(lens.sum()), dtype=np.uint8).tobytes()
+        ends = np.cumsum(lens).tolist()
+        return [blob[e - n: e] for e, n in zip(ends, lens.tolist())]
+
+    first = tokens(INTERSECT_TOKENS)
+    second = [first[int(i)] for i in rng.permutation(INTERSECT_TOKENS)[: INTERSECT_TOKENS // 2]]
+    second += tokens(INTERSECT_TOKENS - len(second))
+    second = [second[int(i)] for i in rng.permutation(len(second))]
+    print(f"[setup] intersect: 2 x {INTERSECT_TOKENS} tokens in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    ia, ib = _launched("intersect", counters, ["hash_short"],
+                       lambda: szt.intersect(first, second), launches)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    first_at, second_at = {}, {}
+    for i, s in enumerate(first):
+        first_at.setdefault(s, i)
+    for i, s in enumerate(second):
+        second_at.setdefault(s, i)
+    common = sorted(first_at.keys() & second_at.keys(), key=first_at.get)
+    _check(ia.tolist() == [first_at[s] for s in common]
+           and ib.tolist() == [second_at[s] for s in common],
+           f"intersect: {len(ia)} pairs != Python's set of {len(common)} common tokens")
+    print(f"[engine] intersect 2 x {INTERSECT_TOKENS} tokens: {len(ia)} common distinct tokens, "
+          f"first occurrences, equal Python's sets")
+    t = [time.perf_counter()]
+    a_strs, _ = ix._distinct(first)
+    b_strs, _ = ix._distinct(second)
+    t.append(time.perf_counter())
+    a_hash = ix.hash_batch_device(a_strs, 0)
+    b_hash = ix.hash_batch_device(b_strs, 0)
+    t.append(time.perf_counter())
+    pa, pb = ix._sorted_match(a_hash, b_hash)
+    t.append(time.perf_counter())
+    keep = [k for k in range(len(pa)) if a_strs[pa[k]] == b_strs[pb[k]]]
+    t.append(time.perf_counter())
+    _check(len(keep) == len(ia), "intersect's parts disagree with the call")
+    parts = np.diff(t) * 1e3
+    dt = device_tape(Tape.from_strings(a_strs), dev)
+    args = raw_args(dt)
+    kernel_ms = _time_ms(lambda: hash_kernel.hash_short(*args, 0), 20, sync)
+    plain_ms = _time_ms(lambda: hash_kernel.hash_short_reference(*args, 0), 2, sync)
+    keys = torch.from_numpy((a_hash ^ np.uint64(1 << 63)).view(np.int64)).to(dev)
+    sort_ms = _time_ms(lambda: torch.sort(keys, stable=True), 20, sync)
+    bound_ms, bound_by = _bound(_hash_ops(dt.lengths), _hash_bytes(dt.lengths))
+    _profile(f"intersect 2 x {INTERSECT_TOKENS}", lambda: szt.intersect(first, second), sync)
+    print(f"[perf] intersect 2 x {INTERSECT_TOKENS} tokens: call {call_ms:.3f} ms = _distinct "
+          f"{parts[0]:.3f} + hashing (two hash_batch_device, tape build, H2D and pull) "
+          f"{parts[1]:.3f} + device sort and match {parts[2]:.3f} + exact check {parts[3]:.3f} ms")
+    print(f"[perf] hash_short on {len(a_strs)} distinct tokens: kernel {kernel_ms:.4f} ms = "
+          f"{len(a_strs) / kernel_ms / 1e3:.3f} Mtokens/s; plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}); torch.sort of {len(a_hash)} int64 keys {sort_ms:.4f} ms")
+    report["hash_short"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None)
+    del first, second, a_strs, b_strs, dt, args, keys
+
+    # -- Strs.hashes on a log file's lines and words ---------------------------
+    path_name = _log_path()
+    body = _write_log(path_name)
+    try:
+        f = szt.File(path_name)
+        t0 = time.perf_counter()
+        lines = f.splitlines()
+        split_ms = (time.perf_counter() - t0) * 1e3
+        lens = lines.lengths
+        # every line but the closing FATAL one (52 bytes) is over 64 bytes
+        _check(int(lens[:-1].min()) > 64, "a log line is not over 64 bytes")
+        t0 = time.perf_counter()
+        got = _launched("Strs.hashes (lines)", counters, ["hash_long"], lines.hashes, launches)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        mirror = f._mirror
+        t0 = time.perf_counter()
+        again = lines.hashes()
+        again_ms = (time.perf_counter() - t0) * 1e3
+        _check(f._mirror is mirror and np.array_equal(again, got),
+               "Strs.hashes: a second call rebuilt the mirror or differs")
+        starts = torch.from_numpy(lines._starts).to(dev)
+        lengths = torch.from_numpy(lens).to(dev)
+        short = hash_kernel.hash_short_reference(mirror, starts, lengths, 0)
+        plain = hash_kernel.hash_long_reference(mirror, starts, lengths, 0, short).cpu().numpy()
+        err = _digests_err(got.view(np.int64), plain)
+        _check(err == 0, f"Strs.hashes on {len(lines)} lines != the plain version on the card")
+        sample = np.random.default_rng(SEED + 41).choice(len(lines), HASH_SAMPLE, replace=False)
+        want = host_hash.hash_batch([bytes(lines[int(i)]) for i in sample], 0)
+        _check(np.array_equal(got[sample], want), "Strs.hashes (lines) != host hash_batch")
+        print(f"[engine] Strs.hashes on {len(lines)} lines of {int(lens[:-1].min())}-"
+              f"{int(lens.max())} bytes and one of {int(lens[-1])}: equal the plain version on the card and the host on {HASH_SAMPLE} samples")
+        args = (mirror, starts, lengths)
+        kernel_ms = _time_ms(lambda: hash_kernel.hash_long(*args, 0), 10, sync)
+        plain_ms = _time_ms(lambda: hash_kernel.hash_long_reference(*args, 0), 1, sync)
+        bound_ms, bound_by = _bound(_hash_ops(lens), _hash_bytes(lens))
+        _profile(f"Strs.hashes {len(lines)} lines", lines.hashes, sync)
+        print(f"[perf] Strs.hashes {len(lines)} lines ({len(f) >> 20} MiB): splitlines "
+              f"{split_ms:.3f} ms; first call with the mirror's H2D {first_ms:.3f} ms; again "
+              f"{again_ms:.3f} ms; hash_long kernel {kernel_ms:.4f} ms = "
+              f"{len(f) / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        report["hash_long"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=None, max_abs_err=err)
+        del lines, starts, lengths, args, short, plain
+
+        head = f[: WORDS_BYTES]
+        t0 = time.perf_counter()
+        words = head.split(b" ")
+        split_ms = (time.perf_counter() - t0) * 1e3
+        wl = words.lengths
+        t0 = time.perf_counter()
+        got = _launched("Strs.hashes (words)", counters, ["hash_short"], words.hashes, launches)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        starts = torch.from_numpy(words._starts).to(dev)
+        lengths = torch.from_numpy(wl).to(dev)
+        args = (head._mirror, starts, lengths)
+        plain = hash_kernel.hash_short_reference(*args, 0).cpu().numpy()
+        err = _digests_err(got.view(np.int64), plain)
+        report["hash_short"]["max_abs_err"] = err
+        _check(err == 0, f"Strs.hashes on {len(words)} words != the plain version on the card")
+        sample = np.random.default_rng(SEED + 42).choice(len(words), HASH_SAMPLE, replace=False)
+        want = host_hash.hash_batch([bytes(words[int(i)]) for i in sample], 0)
+        _check(np.array_equal(got[sample], want), "Strs.hashes (words) != host hash_batch")
+        kernel_ms = _time_ms(lambda: hash_kernel.hash_short(*args, 0), 10, sync)
+        bound_ms, bound_by = _bound(_hash_ops(wl), _hash_bytes(wl))
+        print(f"[engine] Strs.hashes on {len(words)} words of {int(wl.min())}-{int(wl.max())} "
+              f"bytes (the first {WORDS_BYTES >> 20} MiB split on spaces): equal the plain "
+              f"version on the card and the host on {HASH_SAMPLE} samples")
+        print(f"[perf] Strs.hashes {len(words)} words: split {split_ms:.3f} ms; call with the "
+              f"slice's mirror H2D {call_ms:.3f} ms; hash_short kernel {kernel_ms:.4f} ms = "
+              f"{len(words) / kernel_ms / 1e3:.3f} Mtokens/s; bound {bound_ms:.4f} ms ({bound_by})")
+        sort_words = szt.Strs(words[:SORT_WORDS].to_list())  # a copy: the file closes
+        del words, head, starts, lengths, args, plain, got
+        f.close()
+    finally:
+        os.unlink(path_name)
+
+    # -- documents: bench_crypto_e2e's 1000 x 100 KB, and one 3 MiB string -----
+    drng = np.random.default_rng(SEED + 43)
+    count, size = DOCS
+    docs_blob = drng.integers(0, 256, count * size, dtype=np.uint8).tobytes()
+    docs = [docs_blob[i * size: (i + 1) * size] for i in range(count)]
+    docs.append(drng.integers(0, 256, DOC_BIG, dtype=np.uint8).tobytes())
+    t0 = time.perf_counter()
+    got = _launched("documents", counters, ["hash_long"],
+                    lambda: hash_kernel.hash_batch_device(docs), launches)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    for i in (0, 1, count // 2, count - 1, count):
+        _check(int(got[i]) == int(host_hash.hash_multiseed(docs[i], [0])[0]),
+               f"hash_batch_device document {i} ({len(docs[i])} B) != host sz_hash")
+    dt = device_tape(Tape.from_strings(docs), dev)
+    args = raw_args(dt)
+    docs_ms = _time_ms(lambda: hash_kernel.hash_long(*args, 0), 3, sync)
+    bound_ms, bound_by = _bound(_hash_ops(dt.lengths), _hash_bytes(dt.lengths))
+    print(f"[engine] hash_batch_device on {count} x {size} B documents and one {DOC_BIG >> 20} "
+          f"MiB string: 5 samples equal the host sz_hash")
+    print(f"[perf] documents: hash_batch_device call {call_ms:.3f} ms; hash_long kernel "
+          f"{docs_ms:.4f} ms = {dt.lengths.sum() / docs_ms / 1e6:.3f} GB/s; bound {bound_ms:.4f} "
+          f"ms ({bound_by}); the {DOC_BIG >> 20} MiB string's quad walks "
+          f"{(DOC_BIG - 1) // 64} chunks alone")
+    del docs, docs_blob, dt, args
+
+    # -- fill_random: bench_fill_random --------------------------------------
+    out = _launched("fill_random", counters, ["fill_random"],
+                    lambda: aes_kernel.fill_random_device(FILL_BYTES, 42), launches)
+    want = aes_kernel.fill_random_reference(FILL_BYTES, 42, dev)
+    same = torch.equal(out, want)
+    err = 0 if same else int((out.int() - want.int()).abs().max())
+    _check(same, f"fill_random_device({FILL_BYTES}, 42) != the plain version on the card")
+    kernel_ms = _time_ms(lambda: aes_kernel.fill_random_device(FILL_BYTES, 42), 10, sync)
+    plain_ms = _time_ms(lambda: aes_kernel.fill_random_reference(FILL_BYTES, 42, dev), 1, sync)
+    bound_ms, bound_by = _bound(AES_OPS * FILL_BYTES / 16, FILL_BYTES)
+    print(f"[engine] fill_random_device({FILL_BYTES}, 42) equals the plain version on the card")
+    print(f"[perf] fill_random {FILL_BYTES >> 20} MiB: kernel {kernel_ms:.4f} ms = "
+          f"{FILL_BYTES / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    report["fill_random"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None, max_abs_err=err)
+    del out, want
+
+    # -- SHA-256: bench_sha256's tokens and tpu_sweep's messages ---------------
+    srng = np.random.default_rng(SEED + 44)
+    toks = [srng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+            for n in srng.integers(4, 48, SHA_TOKENS)]
+    msgs = [srng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+            for n in list(srng.integers(0, 120, 60)) + [600]]
+    for name, items in (("tokens", toks), ("messages", msgs)):
+        digests = sha256_batch(items)
+        _check([bytes(d) for d in digests] == [hashlib.sha256(s).digest() for s in items],
+               f"sha256_batch {name} != hashlib")
+        ms = _host_ms(lambda: sha256_batch(items), sync, runs=2)
+        print(f"[perf] sha256_batch {len(items)} {name} (plain torch on the card): {ms:.3f} ms "
+              f"= {len(items) / ms / 1e3:.3f} Mmessages/s; equal hashlib")
+
+    # -- sort: 2^20 words ------------------------------------------------------
+    items = sort_words.to_list()
+    t0 = time.perf_counter()
+    ordered = sort_words.sort()
+    sort_ms = (time.perf_counter() - t0) * 1e3
+    _check(ordered.to_list() == sorted(items), "Strs.sort != Python's sorted")
+    t0 = time.perf_counter()
+    order = szt.argsort_strings(items, prefer_device=True)
+    device_ms = (time.perf_counter() - t0) * 1e3
+    _check(np.array_equal(order, sort_words.order()), "argsort_strings(prefer_device) != host")
+    maxlen = int(sort_words.lengths.max())
+    keys = sort_mod.pack_pgram_keys(items)
+    pad = np.full(((1 << (len(items) - 1).bit_length()) - len(items), keys.shape[1]), 0xFFFFFFFF,
+                  np.uint32)
+    keys = np.concatenate([keys, pad])
+    passes_ms = _host_ms(lambda: sort_mod._device_argsort(keys, dev), sync, runs=2)
+    print(f"[engine] Strs.sort and argsort_strings(prefer_device=True) on {len(items)} words "
+          f"(up to {maxlen} B) equal Python's sorted")
+    print(f"[perf] sort {len(items)} words: Strs.sort (host lexsort) {sort_ms:.3f} ms; "
+          f"argsort_strings(prefer_device=True) {device_ms:.3f} ms, of which the stable "
+          f"torch.sort passes over {keys.shape[1]} key columns with the pull {passes_ms:.3f} ms")
+
+    for k in ("hash_short", "hash_long", "fill_random"):
+        report[k]["launches"] = launches[k]
+    print(f"[engine] launches on the hashing main path: {launches}")
+
+
 def run(dev) -> list:
-    """Phases 3-4e on ``dev``; returns each kernel's report entry."""
+    """Phases 3-4f on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
     max_err, report = {}, {}
-    _check_myers_kernel(dev, sync, max_err)
-    _check_dp_kernel(dev, sync, max_err)
-    _check_lut_kernel(dev, sync, max_err)
-    _check_wavefront_kernel(dev, sync, max_err)
-    _check_band_kernel(dev, sync, max_err)
-    _check_fingerprint_kernel(dev, sync, max_err)
-    _check_rune_myers_kernel(dev, sync, max_err)
-    _check_find_kernel(dev, sync, max_err)
-    _check_utf8_kernel(dev, sync, max_err)
-    _myers_main_path(dev, sync, report)
-    _dp_main_path(dev, sync, report)
-    _wavefront_main_path(dev, sync, report)
-    _fingerprint_main_path(dev, sync, report)
-    _utf8_main_path(dev, sync, report)
-    _buffer_main_path(dev, sync, report)
+    phases = [("3", _check_myers_kernel), ("3b", _check_dp_kernel), ("3b", _check_lut_kernel),
+              ("3c", _check_wavefront_kernel), ("3c", _check_band_kernel),
+              ("3d", _check_fingerprint_kernel), ("3d", _check_rune_myers_kernel),
+              ("3e", _check_find_kernel), ("3e", _check_utf8_kernel),
+              ("3f", _check_hash_kernels)]
+    mains = [("4", _myers_main_path), ("4b", _dp_main_path), ("4c", _wavefront_main_path),
+             ("4d", _fingerprint_main_path), ("4d", _utf8_main_path),
+             ("4e", _buffer_main_path), ("4f", _hash_main_path)]
+    for (phase, fn), out in [(p, max_err) for p in phases] + [(m, report) for m in mains]:
+        t0 = time.perf_counter()
+        fn(dev, sync, out)
+        print(f"[phase] {phase} {fn.__name__} in {time.perf_counter() - t0:.3f} s")
     replaces = {
         "myers_tier_a": ("stringzilla_tpu/ops/myers_pallas.py:396", "csrc/myers.cu"),
         "myers_tier_b": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
@@ -1777,6 +2218,9 @@ def run(dev) -> list:
         "myers_tier_b_runes": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
         "find_search": ("stringzilla_tpu/ops/find_pallas.py:84", "csrc/find.cu"),
         "utf8_validate_count": ("stringzilla_tpu/ops/utf8_device.py:68", "csrc/utf8.cu"),
+        "hash_short": ("stringzilla_tpu/ops/hash_pallas.py:119", "csrc/hash.cu"),
+        "hash_long": ("stringzilla_tpu/ops/hash_pallas.py:224", "csrc/hash.cu"),
+        "fill_random": ("stringzilla_tpu/ops/aes_pallas.py:117", "csrc/hash.cu"),
     }
     return [{"name": k, "route": "cuda",
              "source": f"stringzilla_tpu_torch/{src}", "replaces": tpu,
@@ -1815,10 +2259,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-4e: kernels against plain versions, then the main paths ---
+    # -- phases 3-4f: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-4e in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-4f in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

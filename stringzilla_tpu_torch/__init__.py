@@ -22,7 +22,8 @@ costs) and ``Fingerprints`` (the MinHash kernel); the buffer tier
 (``Str``, ``File``, ``Strs`` and the module-level find, count, split,
 translate and UTF-8 functions), whose buffers of at least 1 MiB run the
 streaming-search, UTF-8 validation and byte-LUT kernels on the card; and
-the host hash functions.
+hashing and set operations: ``Strs.hashes`` and ``intersect`` on the AES
+hash kernels of ``csrc/hash.cu``, SHA-256, sort and compare.
 """
 
 from .models.device_scope import DeviceScope
@@ -49,7 +50,12 @@ from .models.similarities import (
     SmithWatermanScores,
 )
 from .ops import utf8 as _u
+from .ops.compare import batch_equal, batch_order, equal
+from .ops.compare import order as compare_order
 from .ops.hash import Hasher, bytesum, fill_random, hash_multiseed, random, sz_hash
+from .ops.intersect import intersect
+from .ops.sha256 import Sha256, hmac_sha256, sha256
+from .ops.sort import argsort_strings
 from .ops.tape import Tape
 from .utils import platform
 
@@ -123,6 +129,8 @@ def rfind_byteset(text, charset) -> int:
 
 
 hash = sz_hash  # noqa: A001 - intentional API parity with the reference
+order = compare_order  # the reference binding's name
+argsort = argsort_strings
 lookup = translate
 utf8_count = _u.utf8_count
 utf8_decode = _u.utf8_decode
@@ -144,6 +152,7 @@ __all__ = [
     "LevenshteinDistancesUTF8",
     "NeedlemanWunsch",
     "NeedlemanWunschScores",
+    "Sha256",
     "SmithWaterman",
     "SmithWatermanScores",
     "Str",
@@ -157,18 +166,28 @@ __all__ = [
     "Utf8Whitespaces",
     "Utf8Wordbreaks",
     "__capabilities__",
+    "argsort",
+    "argsort_strings",
+    "batch_equal",
+    "batch_order",
     "bytesum",
+    "compare_order",
     "count",
     "count_byteset",
+    "equal",
     "fill_random",
     "find",
     "find_byteset",
     "hash",
     "hash_multiseed",
+    "hmac_sha256",
+    "intersect",
     "lookup",
+    "order",
     "random",
     "rfind",
     "rfind_byteset",
+    "sha256",
     "split",
     "split_iter",
     "splitlines",

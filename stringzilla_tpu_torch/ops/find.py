@@ -49,8 +49,7 @@ def _as_tensor(haystack, device) -> torch.Tensor:
         if haystack.dtype != torch.uint8 or haystack.dim() != 1:
             raise TypeError("a tensor haystack must be 1-D uint8")
         return haystack.contiguous()
-    dev = torch.device(device) if device is not None else platform.cuda_device()
-    return torch.from_numpy(_host_bytes(haystack).copy()).to(dev)
+    return torch.from_numpy(_host_bytes(haystack).copy()).to(platform.resolve_device(device))
 
 
 def byteset_mask(charset) -> np.ndarray:

@@ -1,0 +1,269 @@
+"""Batched ``sz_hash`` of string collections on the card.
+
+Counterpart of ``stringzilla_tpu/ops/hash_pallas.py``:
+
+    hash_tokens_raw(blob, starts, lengths, seed=0) -> int64 tensor
+    hash_batch_device(items, seed=0, device=None)  -> uint64[n]
+    hash_bounds_device(buf, starts, ends, seed=0, device=None) -> uint64[n]
+    hash_long_device(items, seed=0, device=None)   -> uint64[n]
+
+* ``blob``     1-D ``uint8`` tensor; string i is
+  ``blob[starts[i] : starts[i] + lengths[i]]``;
+* ``starts``, ``lengths``  1-D int64 tensors on ``blob``'s device;
+* the digests are bit-identical to ``ops.hash.sz_hash`` (reference
+  ``hash/serial.h:506-599``): int64 tensors holding the u64 bits on the
+  device (torch on CUDA lacks most ``uint64`` operations), ``uint64``
+  numpy arrays on the host.
+
+Strings of at most 64 bytes run ``hash_short``, longer ones ``hash_long``:
+the hand-written Hopper kernels of ``csrc/hash.cu`` on CUDA tensors, the
+plain PyTorch versions ``hash_short_reference`` and ``hash_long_reference``
+on CPU tensors. Each kernel writes the digests of its own strings and
+leaves the others' entries as they are.
+
+The JAX module buckets strings by block count (short) or dyadic chunk
+count (long) and packs each bucket into byte planes, because each bucket
+is a compiled shape; here a thread (short) or four (long) read each string
+straight from the blob at its own offset, so nothing is bucketed or
+padded. The JAX module hashes strings over 2 MiB on the host (a VMEM
+limit); the card has no such limit, and every length runs on the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils import cuda_build, platform
+from .aes_kernel import aes_round, bytes_to_words, words_to_bytes
+from .hash import PI, SHUFFLE
+from .pack_device import DeviceTape, device_tape
+from .tape import Tape
+
+__all__ = ["hash_tokens_raw", "hash_batch_device", "hash_bounds_device", "hash_long_device",
+           "hash_short", "hash_long", "hash_short_reference", "hash_long_reference",
+           "KERNEL_LAUNCHES", "SHORT_MAX"]
+
+# Launches of the CUDA kernels, counted where the wrappers launch them.
+KERNEL_LAUNCHES = {"hash_short": 0, "hash_long": 0}
+
+SHORT_MAX = 64  # the longest string of the short path (hash/serial.h:506)
+_U32 = 0xFFFFFFFF
+_U64 = (1 << 64) - 1
+
+
+def _check(blob, starts, lengths, out):
+    if not isinstance(blob, torch.Tensor) or blob.dtype != torch.uint8 or blob.dim() != 1:
+        raise TypeError("blob must be a 1-D uint8 tensor")
+    if not blob.is_contiguous():
+        raise ValueError("blob must be contiguous")
+    for name, t in (("starts", starts), ("lengths", lengths)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int64 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int64 tensor")
+        if t.device != blob.device:
+            raise ValueError(f"{name} is on {t.device}, blob on {blob.device}")
+    if starts.shape != lengths.shape:
+        raise ValueError(f"starts {tuple(starts.shape)} and lengths "
+                         f"{tuple(lengths.shape)} differ")
+    if out is None:
+        return torch.zeros(starts.numel(), dtype=torch.int64, device=blob.device)
+    if out.dtype != torch.int64 or out.shape != starts.shape or out.device != blob.device \
+            or not out.is_contiguous():
+        raise ValueError("out must be a contiguous int64 tensor shaped like starts, on "
+                         "blob's device")
+    return out
+
+
+# -- plain versions ----------------------------------------------------------
+
+def _u64_pairs(seed: int, first: int, count: int) -> np.ndarray:
+    """``seed ^ PI[first : first + count]`` as little-endian bytes."""
+    return (np.uint64(seed) ^ PI[first: first + count]).astype("<u8").view(np.uint8)
+
+
+def _sum_update(summ: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """shuffle(sum) + data as two wrapping u64 lanes, on ``(..., 16)`` bytes."""
+    a = bytes_to_words(summ[..., torch.as_tensor(SHUFFLE, device=summ.device)])
+    b = bytes_to_words(data)
+    lo = a[..., 0::2] + b[..., 0::2]  # u32 halves in int64: no overflow
+    hi = a[..., 1::2] + b[..., 1::2] + (lo >> 32)
+    return words_to_bytes(torch.stack([lo & _U32, hi & _U32], dim=-1).flatten(-2))
+
+
+def _key_with_length(seed: int, lengths: torch.Tensor) -> torch.Tensor:
+    """(seed + length, seed) as u64 lanes, wrapping, as ``(n, 16)`` bytes."""
+    low = (seed & _U32) + lengths
+    lo, hi = low & _U32, ((seed >> 32) + (low >> 32)) & _U32
+    return words_to_bytes(torch.stack(
+        [lo, hi, torch.full_like(lo, seed & _U32), torch.full_like(lo, seed >> 32)], dim=1))
+
+
+def _gather(blob, starts, counts, width: int) -> torch.Tensor:
+    """``(n, width)`` bytes of each string from its start, zero past ``counts``."""
+    j = torch.arange(width, device=blob.device)
+    valid = j[None, :] < counts[:, None]
+    return torch.where(valid, blob[torch.where(valid, starts[:, None] + j, 0)], 0)
+
+
+def _digest(result: torch.Tensor) -> torch.Tensor:
+    """The first 8 bytes of each block as the int64 of the same bits."""
+    return result[:, :8].contiguous().view(torch.int64)[:, 0]
+
+
+def hash_short_reference(blob, starts, lengths, seed: int = 0, out=None) -> torch.Tensor:
+    """Plain PyTorch version of ``hash_short``: strings of the same 16-byte
+    block count (1-4) advance through the AES pipeline together, as the
+    numpy ``hash_batch`` groups them."""
+    out = _check(blob, starts, lengths, out)
+    seed = int(seed) & _U64
+    dev = blob.device
+    blocks = torch.clamp((lengths + 15) // 16, min=1)
+    short = (lengths >= 0) & (lengths <= SHORT_MAX)
+    aes0 = torch.from_numpy(_u64_pairs(seed, 0, 2)).to(dev)
+    sum0 = torch.from_numpy(_u64_pairs(seed, 8, 2)).to(dev)
+    for nb in range(1, 5):
+        idx = torch.nonzero(short & (blocks == nb)).flatten()
+        if idx.numel() == 0:
+            continue
+        lens = lengths[idx]
+        data = _gather(blob, starts[idx], lens, 16 * nb)
+        aes = aes0.expand(idx.numel(), 16)
+        summ = sum0.expand(idx.numel(), 16)
+        for b in range(nb):
+            block = data[:, 16 * b: 16 * b + 16]
+            aes = aes_round(aes, block)
+            summ = _sum_update(summ, block)
+        mixed = aes_round(summ, aes)
+        out[idx] = _digest(aes_round(aes_round(mixed, _key_with_length(seed, lens)), mixed))
+    return out
+
+
+def hash_long_reference(blob, starts, lengths, seed: int = 0, out=None) -> torch.Tensor:
+    """Plain PyTorch version of ``hash_long``: the strings of a dyadic group
+    of full-chunk counts step together, one 64-byte chunk at a time, over a
+    ``(n, 4, 16)`` state of four AES and four sum lanes."""
+    out = _check(blob, starts, lengths, out)
+    seed = int(seed) & _U64
+    dev = blob.device
+    idx_long = torch.nonzero(lengths > SHORT_MAX).flatten()
+    if idx_long.numel() == 0:
+        return out
+    full = (lengths[idx_long] - 1) // 64
+    group = torch.ceil(torch.log2(full.double())).long()  # dyadic group of the chunk count
+    aes0 = torch.from_numpy(_u64_pairs(seed, 0, 8).reshape(4, 16)).to(dev)
+    sum0 = torch.from_numpy(_u64_pairs(seed, 8, 8).reshape(4, 16)).to(dev)
+    for g in torch.unique(group).tolist():
+        sel = torch.nonzero(group == g).flatten()
+        idx, chunks = idx_long[sel], full[sel]
+        st, lens = starts[idx], lengths[idx]
+        aes = aes0.expand(idx.numel(), 4, 16)
+        summ = sum0.expand(idx.numel(), 4, 16)
+        for k in range(int(chunks.max())):
+            live = (k < chunks)[:, None, None]
+            block = _gather(blob, st + 64 * k, torch.where(chunks > k, 64, 0), 64).view(-1, 4, 16)
+            aes = torch.where(live, aes_round(aes, block), aes)
+            summ = torch.where(live, _sum_update(summ, block), summ)
+        tail = _gather(blob, st + 64 * chunks, lens - 64 * chunks, 64).view(-1, 4, 16)
+        mixed = aes_round(_sum_update(summ, tail), aes_round(aes, tail))
+        mixed_all = aes_round(aes_round(mixed[:, 0], mixed[:, 1]),
+                              aes_round(mixed[:, 2], mixed[:, 3]))
+        result = aes_round(aes_round(mixed_all, _key_with_length(seed, lens)), mixed_all)
+        out[idx] = _digest(result)
+    return out
+
+
+# -- kernels -----------------------------------------------------------------
+
+def _launch(kernel: str, symbol: str, blob, starts, lengths, seed, out):
+    dev = blob.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, not {dev}")
+    n = starts.numel()
+    if n == 0:
+        return out
+    starts, lengths = starts.contiguous(), lengths.contiguous()
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        err = getattr(lib, symbol)(blob.data_ptr(), blob.numel(), starts.data_ptr(),
+                                   lengths.data_ptr(), n, int(seed) & _U64, out.data_ptr(),
+                                   sms, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.sz_cuda_error_string(err).decode()} ({err})")
+    KERNEL_LAUNCHES[kernel] += 1
+    return out
+
+
+def hash_short(blob, starts, lengths, seed: int = 0, out=None) -> torch.Tensor:
+    """Digests of the strings of at most 64 bytes into ``out`` (zeros when
+    None), the others' entries left as they are: the Hopper kernel for CUDA
+    tensors, the plain version for CPU ones."""
+    out = _check(blob, starts, lengths, out)
+    if blob.device.type == "cpu":
+        return hash_short_reference(blob, starts, lengths, seed, out)
+    return _launch("hash_short", "sz_hash_short", blob, starts, lengths, seed, out)
+
+
+def hash_long(blob, starts, lengths, seed: int = 0, out=None) -> torch.Tensor:
+    """Digests of the strings of more than 64 bytes into ``out``, as
+    ``hash_short`` does for the short ones."""
+    out = _check(blob, starts, lengths, out)
+    if blob.device.type == "cpu":
+        return hash_long_reference(blob, starts, lengths, seed, out)
+    return _launch("hash_long", "sz_hash_long", blob, starts, lengths, seed, out)
+
+
+def hash_tokens_raw(blob, starts, lengths, seed: int = 0, *, short: bool = True,
+                    long: bool = True) -> torch.Tensor:
+    """Digest bits of every string, an int64 tensor on ``blob``'s device, with
+    no transfer to the host. A caller that knows no string is short (or
+    long) passes ``short=False`` (``long=False``) to skip that kernel."""
+    out = _check(blob, starts, lengths, None)
+    if short:
+        hash_short(blob, starts, lengths, seed, out)
+    if long:
+        hash_long(blob, starts, lengths, seed, out)
+    return out
+
+
+def _hash_tape(dt: DeviceTape, seed: int) -> np.ndarray:
+    """``uint64`` digests of every string of a device tape, pulled once."""
+    if len(dt) == 0:
+        return np.zeros(0, dtype=np.uint64)
+    starts = torch.from_numpy(dt.starts).to(dt.device)
+    lengths = torch.from_numpy(dt.lengths).to(dt.device)
+    out = hash_tokens_raw(dt.data, starts, lengths, seed,
+                          short=bool((dt.lengths <= SHORT_MAX).any()),
+                          long=bool((dt.lengths > SHORT_MAX).any()))
+    return out.cpu().numpy().view(np.uint64)
+
+
+def hash_batch_device(items, seed: int = 0, device=None) -> np.ndarray:
+    """``sz_hash`` of every string of a list of byte strings or a ``Tape``,
+    as ``uint64``: the blob goes to ``device`` (``cuda:0`` when None) once,
+    and each string is read there at its offset."""
+    tape = items if isinstance(items, Tape) else Tape.from_strings([bytes(s) for s in items])
+    return _hash_tape(device_tape(tape, platform.resolve_device(device)), seed)
+
+
+def hash_bounds_device(buf, starts, ends, seed: int = 0, device=None) -> np.ndarray:
+    """``sz_hash`` over ``(start, end)`` spans of one buffer: the zero-copy
+    ``Strs.hashes`` path. A tensor ``buf`` (a ``Str``'s device mirror) is
+    read where it lies; anything else is copied to ``device`` first."""
+    if not isinstance(buf, torch.Tensor):
+        host = np.asarray(buf, dtype=np.uint8).reshape(-1)
+        blob = np.zeros(host.shape[0] + 1, dtype=np.uint8)  # the trailing byte of a DeviceTape
+        blob[:-1] = host
+        buf = torch.from_numpy(blob).to(platform.resolve_device(device))
+    return _hash_tape(DeviceTape.from_bounds(buf, starts, ends), seed)
+
+
+def hash_long_device(items, seed: int = 0, device=None) -> np.ndarray:
+    """``sz_hash`` of strings over 64 bytes through ``hash_long`` alone. The
+    JAX function's ``ncm`` (a compiled bucket) has no counterpart here."""
+    tape = Tape.from_strings([bytes(s) for s in items])
+    if (tape.lengths <= SHORT_MAX).any():
+        raise ValueError(f"hash_long_device hashes strings over {SHORT_MAX} bytes")
+    return _hash_tape(device_tape(tape, platform.resolve_device(device)), seed)

@@ -119,6 +119,12 @@ def load() -> ctypes.CDLL:
             lib.sz_find_search.restype = i
             lib.sz_utf8_validate_count.argtypes = [p, ll, p, i, p]
             lib.sz_utf8_validate_count.restype = i
+            u64 = ctypes.c_ulonglong
+            for name in ("sz_hash_short", "sz_hash_long"):
+                getattr(lib, name).argtypes = [p, ll, p, p, ll, u64, p, i, p]
+                getattr(lib, name).restype = i
+            lib.sz_fill_random.argtypes = [u64, ll, p, i, p]
+            lib.sz_fill_random.restype = i
             lib.sz_cuda_error_string.argtypes = [i]
             lib.sz_cuda_error_string.restype = ctypes.c_char_p
             _lib, _log_path = lib, so[:-3] + ".log"

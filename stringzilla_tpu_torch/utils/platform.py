@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cuda_device", "capabilities"]
+__all__ = ["cuda_device", "resolve_device", "capabilities"]
 
 
 def cuda_device(index: int = 0) -> torch.device:
@@ -27,6 +27,12 @@ def cuda_device(index: int = 0) -> torch.device:
     if not 0 <= index < count:
         raise ValueError(f"CUDA device {index} does not exist ({count} visible)")
     return torch.device("cuda", index)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None is ``cuda_device()``, which
+    raises when there is no card."""
+    return torch.device(device) if device is not None else cuda_device()
 
 
 def capabilities() -> tuple[str, ...]:

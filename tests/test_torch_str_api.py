@@ -249,9 +249,6 @@ def test_module_functions_match_jax():
 
 
 @pytest.mark.parametrize("call,what", [
-    (lambda s: s.sha256(), "queue 1 item 3"), (lambda s: tsz.Strs([b"a"]).hashes(), "item 3"),
-    (lambda s: tsz.Strs([b"a"]).order(), "item 4"), (lambda s: tsz.Strs([b"a"]).sort(), "item 4"),
-    (lambda s: tsz.Strs([b"a"]).sorted(), "item 4"),
     (lambda s: tsz.Strs([b"a"]).__arrow_c_array__(), "item 5"),
     (lambda s: tsz.Strs(type("A", (), {"__arrow_c_array__": None})()), "item 5"),
     (lambda s: s.utf8_fold(), "item 5"), (lambda s: s.utf8_norm(), "item 5"),
