@@ -171,17 +171,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    split into ``_distinct``, hashing, device sort and match, and the exact
    check), the plain versions, ``sha256_batch`` and ``torch.sort``.
 
-Phases 4-4f also profile one engine call of each workload with
-``torch.profiler`` and print the device's idle share of it, and every
-phase prints its time.
+3g. The same for the meet-in-the-middle stage kernel
+   (``csrc/wavefront_stage.cu``): ``ops.wavefront.stage_batch`` against
+   ``stage_reference`` from the same state at every stage of 4-stage
+   ladders, a call's two sweeps sharing each launch, on the CPU tests'
+   shapes (4-1,100 chars, m < n, m > n, m = n, among them the three where
+   the JAX ``wavefront_score_mim`` raises) under costs (0, 1, 1), (0, 3, 2)
+   and (-1, 1, 1), on sweeps to d_end 2 and 3 (a first stage of zero steps)
+   and on two pairs of 4,001 x 7,919 chars both ways; then whole ladders of
+   1-8 stages against the plain sweep, and ``wavefront_score_mim`` on the
+   card against the flat kernel. Exact equality.
+4g. Main path, meet in the middle: ``wavefront_score_mim`` with no
+   ``device=`` on DNA of 180,000 bases (seed 50) against a copy with 0.5%
+   substitutions, insertions and deletions cut to 180,000 and to 150,000
+   bases (m > n), each under unit costs and (0, 3, 2). Counts are reset
+   before these four calls and read after; ``wavefront_stage`` must have
+   launched. The 180,000 x 180,000 unit-cost score must equal
+   ``levenshtein_long_pair`` (the band kernel, distance under 2,047), the
+   other three ``wavefront_score`` (the flat kernel); the kernel's four
+   frontiers of the first pair must equal the plain version's on the card.
+   Times the call, the stage kernel's launches of one call, the flat
+   kernel on the same pair and the plain version.
+
+Phases 4-4g also profile one engine call of each workload with
+``torch.profiler`` and print the device's idle share of it; a trace whose
+device time is under half the kernel's time by events is reported as
+lost, with the device events it holds, and profiled again in a fresh
+session. Every phase prints its time.
+Kernel times are the median of five batches of CUDA-event timings (three
+in phase 4g), with the fastest and slowest batch beside it; kernels under
+~0.1 ms (``byte_lut``, ``hash_short``, ``fill_random``) are timed through
+their raw ctypes launch, arguments built beforehand, without their
+wrappers' host work.
 
 Prints the card's name and power limit and one JSON line of per-kernel
-results (time, plain time, launches on the main path, bound by the card's
-peak rates, PyTorch library time where one call computes the same), then,
-last, the device line
+results (time and its spread over the batches, plain time, launches on the
+main path, bound by the card's peak rates, PyTorch library time where one
+call computes the same), then, last, the device line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import collections
 import itertools
 import json
 import os
@@ -238,6 +268,19 @@ DOC_BIG = 3 << 20
 FILL_BYTES = 1 << 28
 SHA_TOKENS = 1 << 16
 SORT_WORDS = 1 << 20
+# Phase 3g: the CPU tests' shapes (m < n, m > n, m = n, and the three where
+# the JAX wavefront_score_mim raises) under three cost sets, sweeps to a
+# small d_end (a first stage of zero steps), two pairs of 4,000-8,000 chars.
+STAGE_SHAPES = [(4, 9), (9, 4), (50, 50), (300, 280), (280, 300), (700, 700), (1100, 900),
+                (1024, 1000), (1025, 900)]
+STAGE_DEND = [(30, 20, 2), (20, 30, 3), (5, 5, 2)]
+STAGE_BIG = [(7919, 4001), (4001, 7919)]
+STAGE_COSTS = [(0, 1, 1), (0, 3, 2), (-1, 1, 1)]
+# Phase 4g: DNA of MIM_CHARS against a copy with MIM_RATE edits, cut to
+# MIM_CHARS and to MIM_SHORT chars.
+MIM_CHARS = 180_000
+MIM_SHORT = 150_000
+MIM_RATE = 0.005
 
 # The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
 # multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused
@@ -377,42 +420,93 @@ def _block(rng, q_lens, c_lens, rows, cand_len, lo, hi):
             np.asarray(c_lens, np.int32).reshape(1, -1))
 
 
-def _time_ms(fn, iters, sync):
-    """Mean device time of ``fn`` over ``iters`` runs, by CUDA events."""
+class Timing(float):
+    """A median time in ms that also carries the fastest (``lo``) and
+    slowest (``hi``) of the batches it is the median of."""
+
+
+def _time_ms(fn, iters, sync, batches=5):
+    """Device time of ``fn`` per run, by CUDA events around each of
+    ``batches`` batches of ``iters`` runs, after one warm-up run: the
+    median batch, with the spread of all of them."""
     import torch
 
     fn()
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    sync()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(batches):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / iters)
+    t = Timing(np.median(times))
+    t.lo, t.hi = min(times), max(times)
+    return t
 
 
-def _profile(name, fn, sync):
+def _raw_launch(symbol, *args):
+    """A function that launches the kernel library's ``symbol`` with
+    ``args`` built beforehand and raises if the launch fails: a kernel's
+    time without its wrapper's host work, for kernels too short to hide
+    it (under ~0.1 ms)."""
+    from stringzilla_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load()
+    fn = getattr(lib, symbol)
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{symbol}: {lib.sz_cuda_error_string(err).decode()} ({err})")
+
+    return launch
+
+
+def _launch_env(dev):
+    """(SM count, current stream handle) of ``dev``, as the wrappers pass them."""
+    import torch
+
+    return (torch.cuda.get_device_properties(dev).multi_processor_count,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _profile(name, fn, sync, kernel_ms):
     """Prints the device's idle share of one call of ``fn`` under
     ``torch.profiler``: device time is the sum of every kernel's and copy's
     own time (the device's events only: a host op's device time repeats
     the time of the kernels it launched), wall time the host clock to the
-    end of a synchronise."""
+    end of a synchronise. The call runs the work of ``kernel_ms`` (its main
+    kernel alone, by CUDA events) at least once, so a trace whose device
+    time is under half of it has lost device events, all or some: it is
+    reported as lost, with the device events it holds, and the call is
+    profiled once more in a fresh session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for session in (1, 2):
         sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA) / 1e3
-    print(f"[profile] {name}: one engine call under torch.profiler: device "
-          f"{device_ms:.3f} ms of {wall_ms:.3f} ms wall, idle "
-          f"{100 * (1 - device_ms / wall_ms):.1f}%")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+        on_device = [e for e in averages if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+        if device_ms >= 0.5 * kernel_ms:
+            print(f"[profile] {name}: one call under torch.profiler (session {session}): "
+                  f"device {device_ms:.3f} ms of {wall_ms:.3f} ms wall, idle "
+                  f"{100 * (1 - device_ms / wall_ms):.1f}%")
+            return
+        held = collections.Counter(e.name[:48] for e in prof.events()
+                                   if e.device_type == DeviceType.CUDA)
+        print(f"[profile] {name}: trace lost (session {session}): device {device_ms:.3f} ms "
+              f"against {kernel_ms:.4f} ms of the kernel alone by events, {wall_ms:.3f} ms "
+              f"wall; device events held: {dict(held)}")
 
 
 def _reset(*counters):
@@ -681,9 +775,9 @@ def _myers_main_path(dev, sync, report):
         for _ in range(engine_runs):
             engine(qs, cs)
         engine_s = (time.perf_counter() - t0) / engine_runs
-        _profile(name, lambda: engine(qs, cs), sync)
         kernel_ms = _time_ms(lambda: myers(*packed), 10, sync)
-        plain_ms = _time_ms(lambda: myers_reference(*packed), 1, sync)
+        plain_ms = _time_ms(lambda: myers_reference(*packed), 1, sync, batches=1)
+        _profile(name, lambda: engine(qs, cs), sync, kernel_ms)
         bound_ms, bound_by = _bound(MYERS_OPS_PER_WORD_STEP * word_steps, nbytes)
         report[tier] = dict(launches=launches[tier], ms=kernel_ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
@@ -814,9 +908,10 @@ def _dp_main_path(dev, sync, report):
         for _ in range(engine_runs):
             engine(*inputs)
         engine_s = (time.perf_counter() - t0) / engine_runs
-        _profile(name, lambda: engine(*inputs), sync)
         kernel_ms = _time_ms(lambda: similarity(*packed, cfg, table_t), 10, sync)
-        plain_ms = _time_ms(lambda: similarity_reference(*packed, cfg, table_t), 1, sync)
+        plain_ms = _time_ms(lambda: similarity_reference(*packed, cfg, table_t), 1, sync,
+                            batches=1)
+        _profile(name, lambda: engine(*inputs), sync, kernel_ms)
         bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * cells, nbytes)
         if name == "nw-affine":  # the reference's CUDA row (BASELINE.md:34)
             report["similarity_dp"] = dict(
@@ -833,7 +928,12 @@ def _dp_main_path(dev, sync, report):
     for name, blob in (("protein candidates' blob", device_tape(prot_ct, dev).data),
                        ("16 MiB", torch.randint(0, 256, (1 << 24,), dtype=torch.uint8,
                                                 device=dev))):
-        kernel_ms = _time_ms(lambda: lookup_transform(blob, lut_t), 100, sync)
+        out = torch.empty_like(blob)
+        kernel_ms = _time_ms(_raw_launch("sz_lookup", blob.data_ptr(), blob.numel(),
+                                         lut_t.data_ptr(), out.data_ptr(), *_launch_env(dev)),
+                             100, sync)
+        _check(torch.equal(out, lookup_transform(blob, lut_t)),
+               f"byte_lut by its raw launch != its wrapper on the {name}")
         plain_ms = _time_ms(lambda: lookup_reference(blob, lut_t), 100, sync)
         library_ms = _time_ms(lambda: lut_t[blob.long()], 100, sync)
         bound_ms, bound_by = _bound(0.0, 2.0 * blob.numel())
@@ -1020,8 +1120,8 @@ def _wavefront_main_path(dev, sync, report):
     results = [engine(*inputs) for _, engine, inputs in runs]
     launches = {k: v for counts in counters for k, v in counts.items()}
     print(f"[engine] launches on the long-pair main path: {launches}")
-    for k, n in launches.items():
-        _check(n > 0, f"{k} was not launched on the main path")
+    for k in ("wavefront_band", "wavefront_flat", "similarity_dp", "byte_lut"):  # stage: 4g
+        _check(launches[k] > 0, f"{k} was not launched on the main path")
 
     for (name, engine, (qs, cs)), res in zip(runs, results):
         cfg = engine.config
@@ -1092,8 +1192,8 @@ def _wavefront_main_path(dev, sync, report):
         for _ in range(engine_runs):
             engine(qs, cs)
         engine_s = (time.perf_counter() - t0) / engine_runs
-        _profile(name, lambda: engine(qs, cs), sync)
         kernel_ms = _time_ms(call, 5, sync)
+        _profile(name, lambda: engine(qs, cs), sync, kernel_ms)
         bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * work, nbytes)
         report[kernel] = dict(
             launches=launches[kernel], ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1303,8 +1403,8 @@ def _fingerprint_main_path(dev, sync, report):
         engine_ms = host_ms(lambda: engine(docs))
         device_ms = host_ms(lambda: engine(docs, device_out=True))
         bands_ms = host_ms(lambda: band_keys(engine(docs, device_out=True)[0], bands=16))
-        _profile(name, lambda: engine(docs), sync)
         kernel_ms = _time_ms(lambda: fingerprint_all(*args), 10, sync)
+        _profile(name, lambda: engine(docs), sync, kernel_ms)
         ops_ms = FINGERPRINT_OPS_PER_STEP * hashes / F64_OPS_PER_S * 1e3
         bytes_ms = (total + 16.0 * len(docs) + 8.0 * 256 * len(docs)) / HBM_BYTES_PER_S * 1e3
         bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
@@ -1409,9 +1509,10 @@ def _utf8_main_path(dev, sync, report):
         for _ in range(engine_runs):
             engine(qs, cs)
         engine_s = (time.perf_counter() - t0) / engine_runs
-        _profile(name, lambda: engine(qs, cs), sync)
         kernel_ms = _time_ms(lambda: myers(*packed, alphabet=None), 10, sync)
-        plain_ms = _time_ms(lambda: myers_reference(*packed, alphabet=None), 1, sync)
+        plain_ms = _time_ms(lambda: myers_reference(*packed, alphabet=None), 1, sync,
+                            batches=1)
+        _profile(name, lambda: engine(qs, cs), sync, kernel_ms)
         bound_ms, bound_by = _bound(MYERS_OPS_PER_WORD_STEP * word_steps, nbytes)
         tier = "myers_tier_a_runes" if rows <= 256 else "myers_tier_b_runes"
         report[tier] = dict(launches=launches[tier], ms=kernel_ms, plain_ms=plain_ms,
@@ -1684,7 +1785,7 @@ def _buffer_main_path(dev, sync, report):
     plain_ms = _time_ms(lambda: search_positions_reference(mirror, n, "first", needle=nd), 1, sync)
     scanned = hit + len(needle)  # "first" reads up to its hit: here the whole buffer
     bound_ms, bound_by = _bound(FIND_OPS_PER_BYTE * scanned, scanned)
-    _profile(f"Str.find {n >> 20} MiB", lambda: s.find(needle), sync)
+    _profile(f"Str.find {n >> 20} MiB", lambda: s.find(needle), sync, kernel_ms)
     print(f"[perf] find {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
           f"kernel {kernel_ms:.4f} ms = {n / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; "
           f"bound {bound_ms:.4f} ms ({bound_by}, the hit at N - 4096 makes it a full scan)")
@@ -1962,6 +2063,19 @@ def _hash_main_path(dev, sync, report):
     def raw_args(dt):
         return (dt.data, torch.from_numpy(dt.starts).to(dev), torch.from_numpy(dt.lengths).to(dev))
 
+    def raw_hash_short(args):
+        """``hash_short(*args, 0)`` by its raw launch, checked against the
+        wrapper once."""
+        blob, starts, lengths = args
+        out = torch.zeros(starts.numel(), dtype=torch.int64, device=dev)
+        launch = _raw_launch("sz_hash_short", blob.data_ptr(), blob.numel(), starts.data_ptr(),
+                             lengths.data_ptr(), starts.numel(), 0, out.data_ptr(),
+                             *_launch_env(dev))
+        launch()
+        _check(torch.equal(out, hash_kernel.hash_short(*args, 0)),
+               "hash_short by its raw launch != its wrapper")
+        return launch
+
     # -- intersect: bench_hash_tokens' tokens ----------------------------------
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -2007,12 +2121,13 @@ def _hash_main_path(dev, sync, report):
     parts = np.diff(t) * 1e3
     dt = device_tape(Tape.from_strings(a_strs), dev)
     args = raw_args(dt)
-    kernel_ms = _time_ms(lambda: hash_kernel.hash_short(*args, 0), 20, sync)
+    kernel_ms = _time_ms(raw_hash_short(args), 20, sync)
     plain_ms = _time_ms(lambda: hash_kernel.hash_short_reference(*args, 0), 2, sync)
     keys = torch.from_numpy((a_hash ^ np.uint64(1 << 63)).view(np.int64)).to(dev)
     sort_ms = _time_ms(lambda: torch.sort(keys, stable=True), 20, sync)
     bound_ms, bound_by = _bound(_hash_ops(dt.lengths), _hash_bytes(dt.lengths))
-    _profile(f"intersect 2 x {INTERSECT_TOKENS}", lambda: szt.intersect(first, second), sync)
+    _profile(f"intersect 2 x {INTERSECT_TOKENS}", lambda: szt.intersect(first, second), sync,
+             kernel_ms)
     print(f"[perf] intersect 2 x {INTERSECT_TOKENS} tokens: call {call_ms:.3f} ms = _distinct "
           f"{parts[0]:.3f} + hashing (two hash_batch_device, tape build, H2D and pull) "
           f"{parts[1]:.3f} + device sort and match {parts[2]:.3f} + exact check {parts[3]:.3f} ms")
@@ -2058,7 +2173,7 @@ def _hash_main_path(dev, sync, report):
         kernel_ms = _time_ms(lambda: hash_kernel.hash_long(*args, 0), 10, sync)
         plain_ms = _time_ms(lambda: hash_kernel.hash_long_reference(*args, 0), 1, sync)
         bound_ms, bound_by = _bound(_hash_ops(lens), _hash_bytes(lens))
-        _profile(f"Strs.hashes {len(lines)} lines", lines.hashes, sync)
+        _profile(f"Strs.hashes {len(lines)} lines", lines.hashes, sync, kernel_ms)
         print(f"[perf] Strs.hashes {len(lines)} lines ({len(f) >> 20} MiB): splitlines "
               f"{split_ms:.3f} ms; first call with the mirror's H2D {first_ms:.3f} ms; again "
               f"{again_ms:.3f} ms; hash_long kernel {kernel_ms:.4f} ms = "
@@ -2086,7 +2201,7 @@ def _hash_main_path(dev, sync, report):
         sample = np.random.default_rng(SEED + 42).choice(len(words), HASH_SAMPLE, replace=False)
         want = host_hash.hash_batch([bytes(words[int(i)]) for i in sample], 0)
         _check(np.array_equal(got[sample], want), "Strs.hashes (words) != host hash_batch")
-        kernel_ms = _time_ms(lambda: hash_kernel.hash_short(*args, 0), 10, sync)
+        kernel_ms = _time_ms(raw_hash_short(args), 10, sync)
         bound_ms, bound_by = _bound(_hash_ops(wl), _hash_bytes(wl))
         print(f"[engine] Strs.hashes on {len(words)} words of {int(wl.min())}-{int(wl.max())} "
               f"bytes (the first {WORDS_BYTES >> 20} MiB split on spaces): equal the plain "
@@ -2132,7 +2247,10 @@ def _hash_main_path(dev, sync, report):
     same = torch.equal(out, want)
     err = 0 if same else int((out.int() - want.int()).abs().max())
     _check(same, f"fill_random_device({FILL_BYTES}, 42) != the plain version on the card")
-    kernel_ms = _time_ms(lambda: aes_kernel.fill_random_device(FILL_BYTES, 42), 10, sync)
+    raw = torch.empty(FILL_BYTES, dtype=torch.uint8, device=dev)
+    kernel_ms = _time_ms(_raw_launch("sz_fill_random", 42, FILL_BYTES // 16, raw.data_ptr(),
+                                     *_launch_env(dev)), 10, sync)
+    _check(torch.equal(raw, out), "fill_random by its raw launch != its wrapper")
     plain_ms = _time_ms(lambda: aes_kernel.fill_random_reference(FILL_BYTES, 42, dev), 1, sync)
     bound_ms, bound_by = _bound(AES_OPS * FILL_BYTES / 16, FILL_BYTES)
     print(f"[engine] fill_random_device({FILL_BYTES}, 42) equals the plain version on the card")
@@ -2184,8 +2302,152 @@ def _hash_main_path(dev, sync, report):
     print(f"[engine] launches on the hashing main path: {launches}")
 
 
+def _check_stage_kernel(dev, sync, max_err):
+    """Phase 3g: the stage kernel against its plain version, stage by stage
+    (a call's two sweeps sharing each launch) and over whole ladders of
+    1-8 stages; ``wavefront_score_mim`` on the card against the flat
+    kernel."""
+    import torch
+    from stringzilla_tpu_torch.ops import wavefront as wf_mod
+    from stringzilla_tpu_torch.ops.wavefront import (stage_batch, stage_reference,
+                                                     wavefront_score, wavefront_score_mim)
+
+    rng = np.random.default_rng(SEED + 7)
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+    err, stages, ladders = 0, 0, 0
+
+    def checked(sweeps, *costs):
+        """A stage through the kernel and the plain version from the same
+        state; the plain result carries on."""
+        nonlocal err, stages
+        got = stage_batch(sweeps, *costs)
+        want = stage_reference(sweeps, *costs)
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                err = max(err, int((x.long() - y.long()).abs().max()))
+        _check(err == 0, f"stage kernel != plain version on stages "
+                         f"{[(sw[4], sw[5]) for sw in sweeps]}, costs {costs}")
+        stages += 1
+        return want
+
+    cases = [(m, n, None, c, range(1, 9)) for m, n in STAGE_SHAPES for c in STAGE_COSTS]
+    cases += [(m, n, d, c, range(1, 9)) for m, n, d in STAGE_DEND for c in STAGE_COSTS]
+    cases += [(m, n, None, (0, 1, 1), (4,)) for m, n in STAGE_BIG]
+    for m, n, d_end, costs, n_stages in cases:
+        a, b = rng.integers(0, 4, m), rng.integers(0, 4, n)
+        k = min(m, n)
+        b[:k] = np.where(rng.random(k) < 0.7, a[:k], b[:k])
+        if d_end is None:  # a meet-in-the-middle call's two sweeps
+            d_star = (m + n) // 2
+            jobs = [(up(a), up(b), d_star), (up(a[::-1]), up(b[::-1]), m + n - d_star)]
+        else:
+            jobs = [(up(a), up(b), d_end)]
+        whole = wf_mod._sweeps(jobs, *costs, 4, checked)
+        for count in n_stages:
+            got = wf_mod._sweeps(jobs, *costs, count, stage_batch)
+            ladders += 1
+            _check(all(torch.equal(x, y) for g, w in zip(got, whole) for x, y in zip(g, w)),
+                   f"stage kernel over {count} stages != plain version on {m} x {n}, {costs}")
+        if d_end is None:
+            got = wavefront_score_mim(a, b, *costs, device=dev)
+            want = wavefront_score(a, b, *costs, device=dev)
+            _check(got == want, f"wavefront_score_mim {m} x {n} {costs}: {got} != flat {want}")
+    sync()
+    print(f"[kernel] wavefront_stage: {stages} stages exact against the plain version from "
+          f"the same state ({len(cases)} sweeps or pairs of sweeps, 4 stages each), "
+          f"{ladders} whole ladders of 1-8 stages exact, on {len(STAGE_SHAPES)} shapes x "
+          f"{len(STAGE_COSTS)} cost sets, d_end 2-3 and {STAGE_BIG}; the scores equal the "
+          f"flat kernel")
+    max_err["wavefront_stage"] = err
+
+
+def _mim_pairs():
+    """DNA of MIM_CHARS bases against a copy with MIM_RATE substitutions,
+    insertions and deletions, cut to MIM_CHARS and to MIM_SHORT."""
+    rng = np.random.default_rng(SEED + 8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    src = rng.choice(acgt, MIM_CHARS + 1000)
+    copy = _mutate(rng, src, acgt, MIM_RATE)
+    a = src[:MIM_CHARS]
+    return [(a, copy[:MIM_CHARS]), (a, copy[:MIM_SHORT])]
+
+
+def _mim_main_path(dev, sync, report):
+    """Phase 4g: ``wavefront_score_mim`` with no ``device=`` at full width."""
+    import torch
+    from stringzilla_tpu_torch.ops import wavefront as wf_mod
+    from stringzilla_tpu_torch.ops.wavefront import (BAND_KMAX, levenshtein_long_pair,
+                                                     stage_batch, stage_reference,
+                                                     wavefront_batch, wavefront_score,
+                                                     wavefront_score_mim)
+
+    pairs = _mim_pairs()
+    runs = [(a, b, costs) for a, b in pairs for costs in ((0, 1, 1), (0, 3, 2))]
+    call_ms = []
+
+    def main_path():
+        scores = []
+        for a, b, costs in runs:
+            t0 = time.perf_counter()
+            scores.append(wavefront_score_mim(a, b, *costs))
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        return scores
+
+    launches = {}
+    scores = _launched("meet-in-the-middle", (wf_mod.KERNEL_LAUNCHES,), ["wavefront_stage"],
+                       main_path, launches)
+    for (a, b, costs), got, ms in zip(runs, scores, call_ms):
+        m, n = len(a), len(b)
+        if m == n and costs == (0, 1, 1):
+            want, by = levenshtein_long_pair(a, b), "levenshtein_long_pair (the band kernel)"
+            _check(want < BAND_KMAX, f"{m} x {n}: distance {want} is past the band")
+        else:
+            want, by = wavefront_score(a, b, *costs), "wavefront_score (the flat kernel)"
+        _check(got == want, f"wavefront_score_mim {m} x {n} {costs}: {got} != {by} {want}")
+        print(f"[engine] wavefront_score_mim {m} x {n} DNA, costs {costs}: {got}, equal to "
+              f"{by}; call {ms:.3f} ms (host clock: upload, 4 stage launches, pull, combine)")
+
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+    for k, (a, b) in enumerate(pairs):
+        m, n = len(a), len(b)
+        d_star = (m + n) // 2
+        jobs = [(up(a), up(b), d_star), (up(a[::-1]), up(b[::-1]), m + n - d_star)]
+        sweep = lambda: wf_mod._sweeps(jobs, 0, 1, 1, 4, stage_batch)
+        if k == 0:  # the kernel against its plain version at full width
+            got = sweep()
+            sync()
+            t0 = time.perf_counter()
+            want = wf_mod._sweeps(jobs, 0, 1, 1, 4, stage_reference)
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(int((x.long() - y.long()).abs().max())
+                      for g, w in zip(got, want) for x, y in zip(g, w))
+            _check(err == 0, f"stage kernel != plain version on the {m} x {n} sweeps")
+            print(f"[engine] wavefront_stage on the {m} x {n} pair's two sweeps (4 stages, "
+                  f"unit costs): all four frontiers equal the plain version on the card")
+        kernel_ms = _time_ms(sweep, 1, sync, batches=3)
+        chars = up(np.concatenate([a, b]))
+        flat_ms = _time_ms(lambda: wavefront_batch(chars, [0], [m], [m], [n]), 1, sync,
+                           batches=3)
+        host_ms = _host_ms(lambda: wavefront_score_mim(a, b), sync, runs=2)
+        steps = max(d_star, m + n - d_star)
+        bound_ms, bound_by = _bound(5.0 * m * n, 4.0 * (m + n) + 16.0 * (m + 1))
+        print(f"[perf] wavefront_score_mim {m} x {n}: call {host_ms:.3f} ms; wavefront_stage "
+              f"{kernel_ms:.4f} ms (batches {kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}) for both "
+              f"sweeps' 4 launches = {m * n / kernel_ms / 1e6:.3f} GCUPS, "
+              f"{kernel_ms / steps * 1e3:.3f} us a step of {steps}; wavefront_flat on the same "
+              f"pair {flat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})"
+              + (f"; plain {plain_ms:.3f} ms" if k == 0 else ""))
+        if k == 0:
+            _profile(f"wavefront_score_mim {m} x {n}", lambda: wavefront_score_mim(a, b), sync,
+                     kernel_ms)
+            report["wavefront_stage"] = dict(
+                launches=launches["wavefront_stage"], ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=err)
+
+
 def run(dev) -> list:
-    """Phases 3-4f on ``dev``; returns each kernel's report entry."""
+    """Phases 3-4g on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
@@ -2194,10 +2456,10 @@ def run(dev) -> list:
               ("3c", _check_wavefront_kernel), ("3c", _check_band_kernel),
               ("3d", _check_fingerprint_kernel), ("3d", _check_rune_myers_kernel),
               ("3e", _check_find_kernel), ("3e", _check_utf8_kernel),
-              ("3f", _check_hash_kernels)]
+              ("3f", _check_hash_kernels), ("3g", _check_stage_kernel)]
     mains = [("4", _myers_main_path), ("4b", _dp_main_path), ("4c", _wavefront_main_path),
              ("4d", _fingerprint_main_path), ("4d", _utf8_main_path),
-             ("4e", _buffer_main_path), ("4f", _hash_main_path)]
+             ("4e", _buffer_main_path), ("4f", _hash_main_path), ("4g", _mim_main_path)]
     for (phase, fn), out in [(p, max_err) for p in phases] + [(m, report) for m in mains]:
         t0 = time.perf_counter()
         fn(dev, sync, out)
@@ -2221,12 +2483,16 @@ def run(dev) -> list:
         "hash_short": ("stringzilla_tpu/ops/hash_pallas.py:119", "csrc/hash.cu"),
         "hash_long": ("stringzilla_tpu/ops/hash_pallas.py:224", "csrc/hash.cu"),
         "fill_random": ("stringzilla_tpu/ops/aes_pallas.py:117", "csrc/hash.cu"),
+        "wavefront_stage": ("stringzilla_tpu/ops/wavefront_pallas.py:243",
+                            "csrc/wavefront_stage.cu"),
     }
     return [{"name": k, "route": "cuda",
              "source": f"stringzilla_tpu_torch/{src}", "replaces": tpu,
              "launches": report[k]["launches"],
              "max_abs_err": max(report[k].get("max_abs_err", 0), max_err[k]),
              "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"],
+             "ms_spread": [getattr(report[k]["ms"], "lo", report[k]["ms"]),
+                           getattr(report[k]["ms"], "hi", report[k]["ms"])],
              "bound_ms": report[k]["bound_ms"], "bound_by": report[k]["bound_by"],
              "library_ms": report[k]["library_ms"]}
             for k, (tpu, src) in replaces.items()]
@@ -2259,10 +2525,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-4f: kernels against plain versions, then the main paths ---
+    # -- phases 3-4g: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-4f in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-4g in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

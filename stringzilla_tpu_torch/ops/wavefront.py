@@ -45,6 +45,26 @@ plain PyTorch versions ``wavefront_reference`` (the JAX kernel's
 anti-diagonal recurrence, every pair of the batch at once) and
 ``band_reference`` (the band kernel's ladder, a pair and a row at a
 time).
+
+The meet-in-the-middle tier is the JAX ``wavefront_score_mim`` with its
+stage kernel ``_stage_kernel``: uniform costs, linear gaps, min objective.
+A forward sweep of ``(a, b)`` to the middle diagonal ``d* = (m + n) // 2``
+and one of the reversed strings to ``m + n - d*`` run as ladders of stages
+(``ladder``: the JAX package's stage bounds), each stage one launch of
+``csrc/wavefront_stage.cu`` for both sweeps, the diagonals staying on the
+card; the host combines the four frontiers it pulls once (paths through a
+cell of ``d*``, and paths that jump it with one substitution):
+
+    wavefront_score_mim(a, b, match=0, mismatch=1, gap=1, n_stages=4, *,
+                        device=None) -> int
+    sweep_frontier(a, b, m, n, d_end, match, mismatch, gap, n_stages=4, *,
+                   device=None) -> (D[d_end], D[d_end - 1]) as numpy int32
+    stage_batch(sweeps, match=0, mismatch=1, gap=1) -> [(D[d1-1], D[d1-2])]
+
+Where the JAX ``_sweep_frontier``'s last tile holds fewer than ``m + 1``
+cells (``m > d_end``), its frontiers come back short and the JAX
+``wavefront_score_mim`` raises; the port's frontiers always hold ``m + 1``
+cells, ``BIG`` past the diagonal, and its score is exact there too.
 """
 
 from __future__ import annotations
@@ -58,8 +78,10 @@ from ..utils import cuda_build, platform
 
 __all__ = ["wavefront_score", "wavefront_batch", "wavefront_reference",
            "levenshtein_long_pair", "levenshtein_batch", "band_batch",
-           "band_reference", "config_costs", "MAX_FLAT_CELLS", "BAND_KMAX",
-           "KERNEL_LAUNCHES", "SCRATCH_CAP_BYTES"]
+           "band_reference", "config_costs", "wavefront_score_mim",
+           "sweep_frontier", "stage_batch", "stage_reference", "ladder",
+           "initial_state", "MAX_FLAT_CELLS", "BAND_KMAX", "KERNEL_LAUNCHES",
+           "SCRATCH_CAP_BYTES"]
 
 BIG = 1 << 28  # the JAX kernel's identity; masked cells take it
 # Diagonal cells of one pair, max(m + 1, n): the JAX kernel's VMEM bound,
@@ -71,8 +93,9 @@ BAND_KMAX = 2047
 _CLASSES = 32
 
 # Launches of the CUDA kernels, counted from what the C side launched: one
-# per tile diagonal of each group of pairs (flat), one per call (band).
-KERNEL_LAUNCHES = {"wavefront_flat": 0, "wavefront_band": 0}
+# per tile diagonal of each group of pairs (flat), one per call (band), one
+# per ladder stage of up to two sweeps (stage).
+KERNEL_LAUNCHES = {"wavefront_flat": 0, "wavefront_band": 0, "wavefront_stage": 0}
 
 # Frontier buffers of one group of pairs; a call whose pairs need more is
 # split into several groups, each its own run of launches.
@@ -490,3 +513,204 @@ def levenshtein_long_pair(a, b, k0: int = 64, *,
     dev = platform.cuda_device(0) if device is None else torch.device(device)
     chars = torch.from_numpy(np.concatenate([a, b])).to(dev)
     return int(levenshtein_batch(chars, [0], [len(a)], [len(a)], [len(b)], k0)[0])
+
+
+# -- meet in the middle ---------------------------------------------------------
+
+def ladder(d_end: int, n_stages: int = 4) -> list[tuple[int, int]]:
+    """The stages ``[d0, d1)`` of a sweep to diagonal ``d_end``, cut as the
+    JAX ``_sweep_frontier`` cuts them: stage ``s`` ends at ``2 + (d_end - 1)
+    * (s + 1) // n_stages``. The first stage always runs, with zero steps
+    when it ends at 2; a later one that would not advance is dropped."""
+    if d_end < 1 or n_stages < 1:
+        raise ValueError(f"a sweep needs d_end >= 1 and n_stages >= 1, not {d_end}, {n_stages}")
+    stages, d_prev = [], 2
+    for s in range(n_stages):
+        d_s = 2 + ((d_end - 1) * (s + 1)) // n_stages
+        if s and d_s <= d_prev:
+            continue
+        stages.append((d_prev, d_s))
+        d_prev = d_s
+    return stages
+
+
+def initial_state(m: int, gap: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(D[1], D[0])`` over ``m + 1`` cells, the first stage's input:
+    ``gap`` at ``i <= 1`` and 0 at ``i = 0``, ``BIG`` elsewhere."""
+    d1 = torch.full((m + 1,), BIG, dtype=torch.int32, device=device)
+    d2 = torch.full((m + 1,), BIG, dtype=torch.int32, device=device)
+    d1[:2] = gap
+    d2[0] = 0
+    return d1, d2
+
+
+def stage_batch(sweeps, match: int = 0, mismatch: int = 1, gap: int = 1) -> list:
+    """One ladder stage of each of one or two sweeps ``(a, b, D1, D2, d0,
+    d1)`` (a call's forward and backward ones): from ``D1 = D[d0-1]`` and
+    ``D2 = D[d0-2]`` through the steps ``d`` in ``[d0, d1)`` to ``(D[d1-1],
+    D[d1-2])``, a list of new tensors. ``a`` and ``b`` are 1-D int32
+    tensors, ``D1`` and ``D2`` int32 of ``len(a) + 1`` cells, all on one
+    device: the Hopper kernel for CUDA tensors (one launch for both sweeps),
+    the plain version for CPU ones."""
+    if _check_sweeps(sweeps).type == "cpu":
+        return stage_reference(sweeps, match, mismatch, gap)
+    return _stage_launch(sweeps, match, mismatch, gap)
+
+
+def stage_reference(sweeps, match: int = 0, mismatch: int = 1, gap: int = 1) -> list:
+    """Plain PyTorch version of the stage kernel, on any device: the same
+    arguments and results as ``stage_batch``."""
+    _check_sweeps(sweeps)
+    return [_stage_plain(*sweep, match, mismatch, gap) for sweep in sweeps]
+
+
+def _check_sweeps(sweeps) -> torch.device:
+    if not 1 <= len(sweeps) <= 2:
+        raise ValueError(f"a stage takes one or two sweeps, not {len(sweeps)}")
+    devices = set()
+    for a, b, D1, D2, d0, d1 in sweeps:
+        for x in (a, b, D1, D2):
+            if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.dim() != 1:
+                raise TypeError("a, b, D1 and D2 must be 1-D int32 tensors")
+            if not x.is_contiguous():
+                raise ValueError("a, b, D1 and D2 must be contiguous")
+            devices.add(x.device)
+        m, n = a.numel(), b.numel()
+        if D1.numel() != m + 1 or D2.numel() != m + 1:
+            raise ValueError(f"D1 and D2 must hold len(a) + 1 = {m + 1} cells")
+        if not 2 <= d0 <= d1 <= m + n + 1:
+            raise ValueError(f"a stage runs 2 <= d0 <= d1 <= m + n + 1, not [{d0}, {d1})")
+    if len(devices) != 1:
+        raise ValueError(f"the sweeps' tensors must lie on one device, not {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the stage runs on CUDA or CPU tensors, not {dev}")
+    return dev
+
+
+def _stage_launch(sweeps, match, mismatch, gap) -> list:
+    """The sweeps in one cooperative launch of ``csrc/wavefront_stage.cu``,
+    the SMs split between them."""
+    dev = sweeps[0][0].device
+    lib = cuda_build.load()
+    out, fields = [], []
+    for a, b, D1, D2, d0, d1 in sweeps:
+        m = a.numel()
+        o1, o2 = torch.empty_like(D1), torch.empty_like(D2)
+        work = torch.empty(3 * (m + 1), dtype=torch.int32, device=dev)
+        fields.append([a.data_ptr(), b.data_ptr(), D1.data_ptr(), D2.data_ptr(), o1.data_ptr(),
+                       o2.data_ptr(), work.data_ptr(), m, b.numel(), d0, d1])
+        out.append((o1, o2, work))
+    rec = np.array(fields, dtype=np.int64)
+    ctrl = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.sz_wavefront_stage(rec.ctypes.data, len(sweeps), match, mismatch, gap,
+                                     ctrl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "sz_wavefront_stage")
+    KERNEL_LAUNCHES["wavefront_stage"] += 1
+    if int(ctrl[1]) != 0:  # a barrier's wait stalled: a fault, never an answer
+        raise RuntimeError(f"sz_wavefront_stage: a grid barrier stalled (status {int(ctrl[1])})")
+    return [(o1, o2) for o1, o2, _ in out]
+
+
+def _stage_plain(a, b, D1, D2, d0, d1, match, mismatch, gap):
+    """The recurrence a diagonal at a time over its live cells ``i`` in
+    ``[max(d - n, 0), min(d, m)]``; every other cell holds ``BIG``. The
+    substitution compares ``a[i - 1]`` with ``b[d - 1 - i]``, which is
+    ``b`` reversed at ``n - d + i``: a slice."""
+    m, n = a.numel(), b.numel()
+    dev = a.device
+    b_rev = b.flip(0)
+    costs = (torch.tensor(match, dtype=torch.int32, device=dev),
+             torch.tensor(mismatch, dtype=torch.int32, device=dev))
+    for d in range(d0, d1):
+        lo, hi = max(d - n, 0), min(d, m)
+        new = torch.full_like(D1, BIG)
+        i0, i1 = max(lo, 1), min(hi, d - 1)  # the interior cells
+        if i0 <= i1:
+            sub = torch.where(a[i0 - 1: i1] == b_rev[n - d + i0: n - d + i1 + 1], *costs)
+            step = torch.minimum(D1[i0: i1 + 1], D1[i0 - 1: i1]) + gap
+            torch.minimum(step, D2[i0 - 1: i1] + sub, out=new[i0: i1 + 1])
+        if lo == 0:
+            new[0] = gap * d
+        if hi == d:
+            new[d] = gap * d
+        D1, D2 = new, D1
+    return D1, D2
+
+
+def _sweeps(jobs, match, mismatch, gap, n_stages, stage) -> list:
+    """Each job ``(a, b, d_end)`` (int32 tensors on one device) swept to
+    ``(D[d_end], D[d_end - 1])``: stage ``s`` of every job in one ``stage``
+    call (``stage_batch`` or ``stage_reference``), the diagonals staying on
+    the device."""
+    states = [initial_state(a.numel(), gap, a.device) for a, _, _ in jobs]
+    stages = [ladder(d_end, n_stages) for _, _, d_end in jobs]
+    for s in range(max(map(len, stages))):
+        live = [k for k in range(len(jobs)) if s < len(stages[k])]
+        got = stage([(jobs[k][0], jobs[k][1], *states[k], *stages[k][s]) for k in live],
+                    match, mismatch, gap)
+        for k, state in zip(live, got):
+            states[k] = state
+    return states
+
+
+def _as_chars(x) -> np.ndarray:
+    return np.asarray(x).astype(np.int32).reshape(-1)
+
+
+def sweep_frontier(a, b, m: int, n: int, d_end: int, match: int, mismatch: int, gap: int,
+                   n_stages: int = 4, *, device: torch.device | str | None = None):
+    """Forward staged sweep of ``(a, b)`` to diagonal ``d_end``, as the JAX
+    ``_sweep_frontier``: ``(D[d_end], D[d_end - 1])`` as numpy int32 arrays
+    of ``m + 1`` cells, ``BIG`` outside the matrix. Runs on ``device``:
+    ``cuda:0`` by default, ``"cpu"`` for the plain version."""
+    a, b = _as_chars(a), _as_chars(b)
+    if (len(a), len(b)) != (m, n):
+        raise ValueError(f"m, n = {m}, {n} but the strings hold {len(a)}, {len(b)} chars")
+    if d_end > m + n:
+        raise ValueError(f"d_end {d_end} is past the last diagonal {m + n}")
+    dev = platform.cuda_device(0) if device is None else torch.device(device)
+    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    (f1, f2), = _sweeps([(at, bt, d_end)], match, mismatch, gap, n_stages, stage_batch)
+    return f1.cpu().numpy(), f2.cpu().numpy()
+
+
+def wavefront_score_mim(a, b, match: int = 0, mismatch: int = 1, gap: int = 1,
+                        n_stages: int = 4, *,
+                        device: torch.device | str | None = None) -> int:
+    """Global min-cost alignment score of ONE long pair, as the JAX
+    ``wavefront_score_mim``: uniform substitution costs, linear gaps, a
+    staged meet-in-the-middle wavefront. Exact: equals ``wavefront_score``
+    and Wagner-Fischer. Runs on ``device``: ``cuda:0`` by default, ``"cpu"``
+    for the plain version."""
+    a, b = _as_chars(a), _as_chars(b)
+    dev = platform.cuda_device(0) if device is None else torch.device(device)
+    m, n = len(a), len(b)
+    if m == 0 or n == 0:
+        return (m + n) * gap
+    d_star = (m + n) // 2
+    if d_star < 2 or (m + n) - d_star < 2:
+        return wavefront_score(a, b, match, mismatch, gap, device=dev)
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    jobs = [(up(a), up(b), d_star), (up(a[::-1]), up(b[::-1]), (m + n) - d_star)]
+    (F1, F0), (B1, B0) = _sweeps(jobs, match, mismatch, gap, n_stages, stage_batch)
+    F1, F0, B1, B0 = torch.stack([F1, F0, B1, B0]).cpu().numpy()
+    # The host combine of the JAX function. Paths through a cell of d*:
+    # F[d*][i] + B[m+n-d*][m-i], each frontier a path cost to or from it.
+    i = np.arange(m + 1)
+    big = np.int64(BIG)
+    f1 = F1.astype(np.int64)
+    b1 = B1[::-1].astype(np.int64)  # b1[i] = B[m+n-d*][m-i]
+    through = np.where((f1 < big) & (b1 < big), f1 + b1, 2 * big)
+    total = int(through.min())
+    # Paths jumping d*-1 -> d*+1 with one substitution or match step:
+    # F[d*-1][i] + sub(a[i], b[d*-1-i]) + B[m+n-d*-1][m-i-1].
+    f0 = F0.astype(np.int64)
+    b0 = np.full(m + 1, 2 * big, np.int64)
+    b0[:m] = B0[::-1][1:].astype(np.int64)  # b0[i] = B[m+n-d*-1][m-i-1]
+    j = d_star - 1 - i  # the jumped cell's column, 0-based char b[j]
+    ok = (i < m) & (j >= 0) & (j < n)
+    sub = np.where(ok & (a[np.clip(i, 0, m - 1)] == b[np.clip(j, 0, n - 1)]), match, mismatch)
+    jump = np.where(ok & (f0 < big) & (b0 < big), f0 + sub + b0, 2 * big)
+    return min(total, int(jump.min()))
