@@ -180,7 +180,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and (-1, 1, 1), on sweeps to d_end 2 and 3 (a first stage of zero steps)
    and on two pairs of 4,001 x 7,919 chars both ways; then whole ladders of
    1-8 stages against the plain sweep, and ``wavefront_score_mim`` on the
-   card against the flat kernel. Exact equality.
+   card against the flat kernel. Then single stages from random diagonals
+   over every row (d0 = m of an m x (m + 7) matrix) where m + 1 sits at an
+   edge of the card's strip plan: a strip's, a CTA's, where the plan
+   widens its strips (the rows one CTA an SM holds), and where it goes into
+   a second wave (and the most rows two waves hold), each over 40 steps;
+   stages that run in up to five waves on a plan cut to one or two SMs
+   (one and two sweeps, one with m > n, 300 steps); each kernel (each R,
+   with its chunk) on two sweeps of 12 and 1-2 strips, on the fewest SMs
+   whose plan takes that R; a 100,000-row sweep's first stage, where every
+   row past d1 is dead; the last diagonal of a matrix;
+   and costs (0, 60,000, 10,200) on 220,000 rows from d0 = 210,000, whose
+   edges leave no int32 room to be made by the recurrence. Exact equality.
 4g. Main path, meet in the middle: ``wavefront_score_mim`` with no
    ``device=`` on DNA of 180,000 bases (seed 50) against a copy with 0.5%
    substitutions, insertions and deletions cut to 180,000 and to 150,000
@@ -191,7 +202,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    other three ``wavefront_score`` (the flat kernel); the kernel's four
    frontiers of the first pair must equal the plain version's on the card.
    Times the call, the stage kernel's launches of one call, the flat
-   kernel on the same pair and the plain version.
+   kernel on the same pair and the plain version; times the ladder also
+   as PR 8 timed it (``stage_batch``, the host waiting on each stage);
+   prints the µs a step, each stage's plan (rows a lane, chunk) and its
+   pipeline fill (the kernel's own record of how long after a sweep's
+   first strip its last began its steps), the fill's share of the kernel
+   time, and the 4 stages on plans cut to 66 and 33 SMs (wider strips).
 
 Phases 4-4g also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it; a trace whose
@@ -276,6 +292,20 @@ STAGE_SHAPES = [(4, 9), (9, 4), (50, 50), (300, 280), (280, 300), (700, 700), (1
 STAGE_DEND = [(30, 20, 2), (20, 30, 3), (5, 5, 2)]
 STAGE_BIG = [(7919, 4001), (4001, 7919)]
 STAGE_COSTS = [(0, 1, 1), (0, 3, 2), (-1, 1, 1)]
+# Phase 3g: steps of the stages at the plan's edges, of the many-wave
+# stages on a plan cut to SMALL_CARD (SMs, warps an SM; CTAs of 4 warps),
+# and the rows of the sweep whose first stage leaves most rows dead.
+STAGE_EDGE_STEPS = 40
+STAGE_WAVE_STEPS = 300
+SMALL_CARD = [(1, 4), (2, 4)]
+STAGE_DEAD_ROWS = 100_000
+# (m = n, d0) and (match, mismatch, gap) of a 200-step stage whose edge
+# gap * d leaves no int32 room for setting edges by the recurrence
+STAGE_NO_ROOM = (220_000, 210_000)
+STAGE_NO_ROOM_COSTS = (0, 60_000, 10_200)
+# Phase 4g: the SMs of the plans that probe the choice of R (fewer SMs take
+# wider strips).
+STAGE_PROBE_SMS = (66, 33)
 # Phase 4g: DNA of MIM_CHARS against a copy with MIM_RATE edits, cut to
 # MIM_CHARS and to MIM_SHORT chars.
 MIM_CHARS = 180_000
@@ -2311,6 +2341,7 @@ def _check_stage_kernel(dev, sync, max_err):
     from stringzilla_tpu_torch.ops import wavefront as wf_mod
     from stringzilla_tpu_torch.ops.wavefront import (stage_batch, stage_reference,
                                                      wavefront_score, wavefront_score_mim)
+    from stringzilla_tpu_torch.utils import cuda_build
 
     rng = np.random.default_rng(SEED + 7)
     up = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
@@ -2358,6 +2389,82 @@ def _check_stage_kernel(dev, sync, max_err):
           f"{ladders} whole ladders of 1-8 stages exact, on {len(STAGE_SHAPES)} shapes x "
           f"{len(STAGE_COSTS)} cost sets, d_end 2-3 and {STAGE_BIG}; the scores equal the "
           f"flat kernel")
+
+    def stage_of(m, n, d0, d1):
+        """One sweep's stage from random diagonals."""
+        a, b = rng.integers(0, 4, m), rng.integers(0, 4, n)
+        k = min(m, n)
+        b[:k] = np.where(rng.random(k) < 0.7, a[:k], b[:k])
+        D1, D2 = (rng.integers(-1000, 1000, m + 1) for _ in range(2))
+        return (up(a), up(b), up(D1), up(D2), d0, d1)
+
+    def exact(sweeps, what, costs=(0, 1, 1), card=None):
+        """A stage on the card's plan, or on a plan cut to ``card`` (SMs,
+        warps an SM), against the plain version."""
+        nonlocal err, stages
+        got = wf_mod._stage_launch(sweeps, *costs, **dict(zip(("sms", "warps_per_sm"),
+                                                              card or ())))
+        want = stage_reference(sweeps, *costs)
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                err = max(err, int((x.long() - y.long()).abs().max()))
+        _check(err == 0, f"stage kernel != plain version on {what}")
+        stages += 1
+
+    lib = cuda_build.load()
+    sms, per_sm = wf_mod._stage_card(lib, dev)
+    W = wf_mod.STAGE_WARPS
+    one_cta_an_sm = sms * W * 32  # rows at R = 1 before the plan widens its strips
+    wave = sms * (per_sm // W) * W * 32 * wf_mod.STAGE_ROWS_PER_LANE[-1]  # rows of one wave
+    edges = {"strip": [32 * 5 + e for e in (-1, 0, 1)],
+             "CTA": [32 * W * 3 + e for e in (-1, 0, 1)],
+             "one CTA an SM": [one_cta_an_sm + e for e in (0, 1)],
+             "second wave": [wave, wave + 1, 2 * wave]}
+    for edge, rows in edges.items():
+        for r in rows:
+            m = r - 1
+            plan = wf_mod.stage_plan([(m, m + 7, m, m + STAGE_EDGE_STEPS)], sms, per_sm)
+            exact([stage_of(m, m + 7, m, m + STAGE_EDGE_STEPS)],
+                  f"m + 1 = {r} rows ({edge} edge; R = {plan.rows_per_lane}, "
+                  f"{plan.sweeps[0].strips} strips, {plan.sweeps[0].waves} waves)")
+        print(f"[kernel] wavefront_stage at the {edge} edge: m + 1 = {rows} rows, "
+              f"{STAGE_EDGE_STEPS} steps, exact")
+    shape = lambda sweeps: [(x[0].numel(), x[1].numel(), x[4], x[5]) for x in sweeps]
+    small_wave = W * 32 * wf_mod.STAGE_ROWS_PER_LANE[-1]  # rows of a wave on (1, 4)
+    for card in SMALL_CARD:
+        for rows in (small_wave - 1, small_wave, small_wave + 1, 2 * small_wave + 1,
+                     5 * small_wave):
+            m = rows - 1
+            sweeps = [stage_of(m, m + STAGE_WAVE_STEPS, m, m + STAGE_WAVE_STEPS)]
+            if card[0] > 1:  # and m > n, its rows above d0 - n dead
+                sweeps.append(stage_of(m + 50, 250, m, m + STAGE_WAVE_STEPS))
+            plan = wf_mod.stage_plan(shape(sweeps), *card)
+            exact(sweeps, f"{rows} rows on {card[0]} SMs "
+                          f"({[sp.waves for sp in plan.sweeps]} waves)", card=card)
+    print(f"[kernel] wavefront_stage in waves on plans cut to {SMALL_CARD} (SMs, warps an SM): "
+          f"{small_wave - 1}-{5 * small_wave + 50} rows, one and two sweeps, "
+          f"{STAGE_WAVE_STEPS} steps, exact")
+    for r in wf_mod.STAGE_ROWS_PER_LANE:  # each kernel, on the fewest SMs that pick it
+        m = 32 * r * 12 - 1
+        sweeps = [stage_of(m, m + 7, m - 50, m + 77), stage_of(m - 9, 300, m - 50, m + 77)]
+        cut = [c for c in range(2, sms + 1)
+               if wf_mod.stage_plan(shape(sweeps), c, per_sm).rows_per_lane == r]
+        _check(bool(cut), f"no plan of 2-{sms} SMs takes R = {r} for {m + 1} rows")
+        exact(sweeps, f"R = {r} on {cut[0]} SMs", card=(cut[0], per_sm))
+    print(f"[kernel] wavefront_stage: each kernel (R in {wf_mod.STAGE_ROWS_PER_LANE}, its chunk "
+          f"of 16 or 8 steps) on two sweeps of 12 and 1-2 strips, on the fewest SMs whose plan "
+          f"takes that R, 127 steps, exact")
+    m = STAGE_DEAD_ROWS
+    exact([stage_of(m, m, 2, 60)], f"the first stage of a {m}-row sweep")
+    # costs whose diagonal edge gap * d comes within int32 room of overflow:
+    # the kernel sets the edge where it lies instead of by the recurrence
+    m, d0 = STAGE_NO_ROOM
+    exact([stage_of(m, m, d0, d0 + 200)], f"costs {STAGE_NO_ROOM_COSTS}", STAGE_NO_ROOM_COSTS)
+    exact([stage_of(300, 200, 500, 501), stage_of(5, 9, 2, 3)], "the last diagonal")
+    print(f"[kernel] wavefront_stage: a {STAGE_DEAD_ROWS}-row sweep's first stage (every row "
+          f"past d1 - 1 dead, written BIG with no strip), the last diagonal of a matrix, and "
+          f"{m} rows from d0 = {d0} under costs {STAGE_NO_ROOM_COSTS} (edges set where they "
+          f"lie), exact")
     max_err["wavefront_stage"] = err
 
 
@@ -2370,6 +2477,34 @@ def _mim_pairs():
     copy = _mutate(rng, src, acgt, MIM_RATE)
     a = src[:MIM_CHARS]
     return [(a, copy[:MIM_CHARS]), (a, copy[:MIM_SHORT])]
+
+
+def _stage_fill(jobs, dev, sync, sms=None):
+    """Each ladder stage of the sweeps ``jobs`` (unit costs), one launch for
+    all of them on the card's plan or on one cut to ``sms`` SMs: (stage,
+    steps, plan, the stage's time, its pipeline fill), the fill being the
+    kernel's own record of how long after the first strip of a sweep the
+    last began its steps (the larger of the two sweeps')."""
+    from stringzilla_tpu_torch.ops import wavefront as wf_mod
+    from stringzilla_tpu_torch.utils import cuda_build
+
+    card_sms, per_sm = wf_mod._stage_card(cuda_build.load(), dev)
+    sms = sms or card_sms
+    stage = lambda sweeps, fills=None: wf_mod._stage_launch(sweeps, 0, 1, 1, fills, sms=sms)
+    states = [wf_mod.initial_state(a.numel(), 1, dev) for a, _, _ in jobs]
+    ladders = [wf_mod.ladder(d_end) for _, _, d_end in jobs]
+    rows = []
+    for s in range(max(map(len, ladders))):
+        live = [k for k in range(len(jobs)) if s < len(ladders[k])]
+        sweeps = [(jobs[k][0], jobs[k][1], *states[k], *ladders[k][s]) for k in live]
+        plan = wf_mod.stage_plan([(a.numel(), b.numel(), d0, d1)
+                                  for a, b, _, _, d0, d1 in sweeps], sms, per_sm)
+        t_ms = _time_ms(lambda: stage(sweeps), 1, sync, batches=3)
+        fills = []
+        for k, state in zip(live, stage(sweeps, fills)):
+            states[k] = state
+        rows.append((s, max(d1 - d0 for *_, d0, d1 in sweeps), plan, t_ms, max(fills) / 1e6))
+    return rows
 
 
 def _mim_main_path(dev, sync, report):
@@ -2412,7 +2547,7 @@ def _mim_main_path(dev, sync, report):
         m, n = len(a), len(b)
         d_star = (m + n) // 2
         jobs = [(up(a), up(b), d_star), (up(a[::-1]), up(b[::-1]), m + n - d_star)]
-        sweep = lambda: wf_mod._sweeps(jobs, 0, 1, 1, 4, stage_batch)
+        sweep = lambda: wf_mod._sweep_stages(jobs, 0, 1, 1, 4)
         if k == 0:  # the kernel against its plain version at full width
             got = sweep()
             sync()
@@ -2426,6 +2561,9 @@ def _mim_main_path(dev, sync, report):
             print(f"[engine] wavefront_stage on the {m} x {n} pair's two sweeps (4 stages, "
                   f"unit costs): all four frontiers equal the plain version on the card")
         kernel_ms = _time_ms(sweep, 1, sync, batches=3)
+        # as PR 8 timed its first design: stage_batch, the host waiting on each stage
+        waited_ms = _time_ms(lambda: wf_mod._sweeps(jobs, 0, 1, 1, 4, stage_batch), 1, sync,
+                             batches=3)
         chars = up(np.concatenate([a, b]))
         flat_ms = _time_ms(lambda: wavefront_batch(chars, [0], [m], [m], [n]), 1, sync,
                            batches=3)
@@ -2435,9 +2573,31 @@ def _mim_main_path(dev, sync, report):
         print(f"[perf] wavefront_score_mim {m} x {n}: call {host_ms:.3f} ms; wavefront_stage "
               f"{kernel_ms:.4f} ms (batches {kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}) for both "
               f"sweeps' 4 launches = {m * n / kernel_ms / 1e6:.3f} GCUPS, "
-              f"{kernel_ms / steps * 1e3:.3f} us a step of {steps}; wavefront_flat on the same "
-              f"pair {flat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})"
+              f"{kernel_ms / steps * 1e3:.4f} us a step of {steps}; wavefront_flat on the same "
+              f"pair {flat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / kernel_ms:.1f}% of the kernel's time"
               + (f"; plain {plain_ms:.3f} ms" if k == 0 else ""))
+        print(f"[perf] wavefront_stage {m} x {n}, timed as PR 8 timed its first design "
+              f"(stage_batch, the host waiting on each of the 4 stages): {waited_ms:.4f} ms "
+              f"(batches {waited_ms.lo:.4f}-{waited_ms.hi:.4f}), against {kernel_ms:.4f} ms "
+              f"queued")
+        fill_ms = whole_ms = 0.0
+        for s, stage_steps, plan, t_ms, fill in _stage_fill(jobs, dev, sync):
+            fill_ms, whole_ms = fill_ms + fill, whole_ms + t_ms
+            print(f"[perf] wavefront_stage {m} x {n} stage {s}: {stage_steps} steps, R = "
+                  f"{plan.rows_per_lane} rows a lane, chunk {plan.chunk}, "
+                  f"{[sp.strips for sp in plan.sweeps]} strips in {plan.ctas} CTAs of "
+                  f"{plan.warps_per_cta} warps; {t_ms:.4f} ms ({t_ms / stage_steps * 1e3:.4f} us "
+                  f"a step), fill {fill:.4f} ms")
+        print(f"[perf] wavefront_stage {m} x {n}: pipeline fill {fill_ms:.4f} ms of "
+              f"{whole_ms:.4f} ms over the 4 stages ({100 * fill_ms / whole_ms:.1f}%)")
+        if k == 0:  # the choice of R: the plan on fewer SMs takes wider strips
+            for cut in STAGE_PROBE_SMS:
+                stages = _stage_fill(jobs, dev, sync, sms=cut)
+                print(f"[perf] wavefront_stage {m} x {n} on a plan cut to {cut} SMs: R = "
+                      f"{[x[2].rows_per_lane for x in stages]} by stage, "
+                      f"{sum(x[3] for x in stages):.4f} ms over the 4 stages, fill "
+                      f"{sum(x[4] for x in stages):.4f} ms")
         if k == 0:
             _profile(f"wavefront_score_mim {m} x {n}", lambda: wavefront_score_mim(a, b), sync,
                      kernel_ms)

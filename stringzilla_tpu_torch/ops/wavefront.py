@@ -60,6 +60,8 @@ cell of ``d*``, and paths that jump it with one substitution):
     sweep_frontier(a, b, m, n, d_end, match, mismatch, gap, n_stages=4, *,
                    device=None) -> (D[d_end], D[d_end - 1]) as numpy int32
     stage_batch(sweeps, match=0, mismatch=1, gap=1) -> [(D[d1-1], D[d1-2])]
+    stage_plan(sweeps, sms, warps_per_sm) -> StagePlan: how a stage
+        launch cuts its live rows into strips, CTAs and waves
 
 Where the JAX ``_sweep_frontier``'s last tile holds fewer than ``m + 1``
 cells (``m > d_end``), its frontiers come back short and the JAX
@@ -70,6 +72,7 @@ cells, ``BIG`` past the diagonal, and its score is exact there too.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,7 +82,7 @@ from ..utils import cuda_build, platform
 __all__ = ["wavefront_score", "wavefront_batch", "wavefront_reference",
            "levenshtein_long_pair", "levenshtein_batch", "band_batch",
            "band_reference", "config_costs", "wavefront_score_mim",
-           "sweep_frontier", "stage_batch", "stage_reference", "ladder",
+           "sweep_frontier", "stage_batch", "stage_reference", "stage_plan", "ladder",
            "initial_state", "MAX_FLAT_CELLS", "BAND_KMAX", "KERNEL_LAUNCHES",
            "SCRATCH_CAP_BYTES"]
 
@@ -588,29 +591,182 @@ def _check_sweeps(sweeps) -> torch.device:
     return dev
 
 
-def _stage_launch(sweeps, match, mismatch, gap) -> list:
-    """The sweeps in one cooperative launch of ``csrc/wavefront_stage.cu``,
-    the SMs split between them."""
+# The stage kernel's plan: rows a lane it is built for, warps a CTA (one a
+# scheduler of an SM), slots of a hand-off ring.
+STAGE_ROWS_PER_LANE = (1, 2, 4, 6, 8, 12, 16, 24, 32)
+STAGE_WARPS = 4
+STAGE_RING = 64
+
+
+def stage_chunk(rows_per_lane: int) -> int:
+    """Steps a strip of ``rows_per_lane`` rows a lane reads from the strip
+    above at once, as the kernel's ``chunk_of`` fixes them: 16 up to R =
+    16; wider strips spill registers at 16 and take 8."""
+    return 16 if rows_per_lane <= 16 else 8
+
+
+class SweepPlan(NamedTuple):
+    """One sweep's part of a ``StagePlan``. Its live rows ``[lo, hi]`` (no
+    row when ``hi < lo``) lie in ``strips`` strips of ``32 * rows_per_lane``
+    rows from strip ``first_strip`` (aligned at row 0), run by ``ctas`` CTAs
+    from ``first_cta`` in ``waves`` waves. ``ring_offset`` is the byte
+    offset in the hand-off buffer of its finished count (8 bytes), the
+    first and last times a strip of its first wave began its steps (16
+    bytes, the pipeline's fill) and its CTAs' rings;
+    ``column_offset`` that of its two wave columns, -1 in one wave."""
+    lo: int
+    hi: int
+    first_strip: int
+    strips: int
+    first_cta: int
+    ctas: int
+    waves: int
+    ring_offset: int
+    column_offset: int
+
+
+class StagePlan(NamedTuple):
+    """How one launch of ``csrc/wavefront_stage.cu`` lays out its sweeps:
+    ``rows_per_lane`` R (a strip is a warp of 32 * R rows), ``chunk`` (steps
+    a strip reads from the strip above at once, ``stage_chunk(R)``),
+    ``warps_per_cta`` (``STAGE_WARPS``), the grid's ``ctas`` and at most ``ctas_per_sm`` of them on an SM, ``ring``
+    slots a hand-off ring, one ``SweepPlan`` a sweep, and the hand-off
+    buffer: ``handoff_bytes`` in all, of which the first ``zeroed_bytes``
+    (status word, finished counts, rings) are zeroed at each launch;
+    ``shared_bytes`` of shared memory a CTA."""
+    rows_per_lane: int
+    chunk: int
+    warps_per_cta: int
+    ctas: int
+    ctas_per_sm: int
+    ring: int
+    sweeps: tuple
+    zeroed_bytes: int
+    handoff_bytes: int
+    shared_bytes: int
+
+    def record(self) -> list[int]:
+        """The plan as ``sz_wavefront_stage`` reads it."""
+        rec = [self.rows_per_lane, self.chunk, self.warps_per_cta, self.ctas, self.ring,
+               self.zeroed_bytes]
+        for sp in self.sweeps:
+            rec += [sp.first_strip, sp.strips, sp.first_cta, sp.ctas, sp.ring_offset,
+                    sp.column_offset]
+        return rec
+
+
+def stage_plan(sweeps, sms: int, warps_per_sm: int) -> StagePlan:
+    """The strip plan of one stage launch of ``sweeps`` ``[(m, n, d0, d1)]``
+    on a card of ``sms`` SMs, each holding ``warps_per_sm`` warps of the
+    kernel at once. A row is live when some step of ``[d0, d1)`` has it in
+    the matrix's band, ``max(d0 - n, 0) <= i <= min(d1 - 1, m)``; only live
+    rows get strips. R is the smallest of ``STAGE_ROWS_PER_LANE`` whose
+    strips fit one CTA an SM, so the rows spread over every SM; past R = 32
+    more CTAs share an SM, up to what it holds, then the strips run in
+    waves, the CTAs split between the sweeps by strips."""
+    W = STAGE_WARPS
+    if sms < 1 or warps_per_sm < W:
+        raise ValueError(f"an SM must hold a CTA of {W} warps, not {warps_per_sm} ({sms} SMs)")
+    live = []
+    for m, n, d0, d1 in sweeps:
+        lo, hi = max(d0 - n, 0), min(d1 - 1, m)
+        live.append((lo, hi) if d1 > d0 and lo <= hi else (1, 0))
+    for r in STAGE_ROWS_PER_LANE:
+        h = 32 * r
+        strips = [hi // h - lo // h + 1 if lo <= hi else 0 for lo, hi in live]
+        ctas = [-(-s // W) for s in strips]
+        if sum(ctas) <= sms:
+            break
+    budget = sms * (warps_per_sm // W)
+    if sum(ctas) > budget:  # waves: every CTA the card holds, split by strips
+        busy = [k for k, s in enumerate(strips) if s]
+        if len(busy) > budget:
+            raise ValueError(f"{len(busy)} sweeps need a CTA each, the card holds {budget}")
+        total = sum(strips)
+        ctas = [max(1, budget * s // total) if s else 0 for s in strips]
+        while sum(ctas) < budget:  # the spare CTAs to the sweep with most strips a warp
+            k = max(busy, key=lambda k: strips[k] / ctas[k])
+            ctas[k] += 1
+    plans, first_cta, off = [], 0, 8  # the status word first
+    for (lo, hi), s, c in zip(live, strips, ctas):
+        plans.append([lo, hi, lo // h if s else 0, s, first_cta, c,
+                      -(-s // (c * W)) if s else 0, off, -1])
+        first_cta += c
+        off += 24 + c * (STAGE_RING + 1) * 8  # count, start times, rings
+    zeroed = off
+    for p, (_, _, d0, d1) in zip(plans, sweeps):
+        if p[6] > 1:
+            p[8] = off
+            off += 16 * (d1 - d0)  # two columns of 8-byte slots
+    grid = max(1, first_cta)
+    return StagePlan(r, stage_chunk(r), W, grid, -(-grid // sms), STAGE_RING,
+                     tuple(SweepPlan(*p) for p in plans), zeroed, off,
+                     W * (STAGE_RING + 1) * 8)
+
+
+_STAGE_CARD: dict = {}
+
+
+def _stage_card(lib, dev) -> tuple[int, int]:
+    """(SMs, warps of the stage kernel an SM holds), the latter for the
+    widest strips, which need the most registers."""
+    if dev.index not in _STAGE_CARD:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.sz_wavefront_stage_occupancy(STAGE_ROWS_PER_LANE[-1],
+                                                   ctypes.byref(per_sm))
+        _raise_on(lib, err, "sz_wavefront_stage_occupancy")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _STAGE_CARD[dev.index] = (sms, per_sm.value * STAGE_WARPS)
+    return _STAGE_CARD[dev.index]
+
+
+def _stage_launch(sweeps, match, mismatch, gap, fills=None, words=None, sms=None,
+                  warps_per_sm=None) -> list:
+    """The sweeps in one cooperative launch of ``csrc/wavefront_stage.cu``
+    on the plan ``stage_plan`` makes for this card, or for a card cut to
+    ``sms`` SMs of ``warps_per_sm`` warps each. It waits for the launch and
+    raises if a wait in it stalled, unless a list ``words`` takes its
+    status word (a device tensor) for the caller to read. A list ``fills``
+    gets, for each sweep, its pipeline fill in ns: from the first to the
+    last time a strip of its first wave began its steps."""
     dev = sweeps[0][0].device
     lib = cuda_build.load()
+    card_sms, card_per_sm = _stage_card(lib, dev)
+    plan = stage_plan([(a.numel(), b.numel(), d0, d1) for a, b, _, _, d0, d1 in sweeps],
+                      sms or card_sms, warps_per_sm or card_per_sm)
     out, fields = [], []
     for a, b, D1, D2, d0, d1 in sweeps:
-        m = a.numel()
         o1, o2 = torch.empty_like(D1), torch.empty_like(D2)
-        work = torch.empty(3 * (m + 1), dtype=torch.int32, device=dev)
         fields.append([a.data_ptr(), b.data_ptr(), D1.data_ptr(), D2.data_ptr(), o1.data_ptr(),
-                       o2.data_ptr(), work.data_ptr(), m, b.numel(), d0, d1])
-        out.append((o1, o2, work))
+                       o2.data_ptr(), a.numel(), b.numel(), d0, d1])
+        out.append((o1, o2))
     rec = np.array(fields, dtype=np.int64)
-    ctrl = torch.empty(2, dtype=torch.int32, device=dev)
+    prec = np.array(plan.record(), dtype=np.int64)
+    handoff = torch.empty(plan.handoff_bytes // 8, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        err = lib.sz_wavefront_stage(rec.ctypes.data, len(sweeps), match, mismatch, gap,
-                                     ctrl.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.sz_wavefront_stage(rec.ctypes.data, len(sweeps), prec.ctypes.data, match,
+                                     mismatch, gap, handoff.data_ptr(), plan.handoff_bytes,
+                                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "sz_wavefront_stage")
     KERNEL_LAUNCHES["wavefront_stage"] += 1
-    if int(ctrl[1]) != 0:  # a barrier's wait stalled: a fault, never an answer
-        raise RuntimeError(f"sz_wavefront_stage: a grid barrier stalled (status {int(ctrl[1])})")
-    return [(o1, o2) for o1, o2, _ in out]
+    if words is not None:
+        words.append(handoff[:1])
+    else:
+        _raise_stalled(handoff[:1])
+    if fills is not None:
+        for sp in plan.sweeps:
+            first, last = handoff[sp.ring_offset // 8 + 1:sp.ring_offset // 8 + 3].tolist()
+            fills.append(last - ~first if sp.strips else 0)
+    return out
+
+
+def _raise_stalled(*words) -> None:
+    """Raises if a stage's status word (int64 tensors of one cell) says a
+    strip's wait stalled: a fault, never an answer."""
+    status = int(torch.cat(words).max()) & 0xFFFFFFFF
+    if status != 0:
+        raise RuntimeError(f"sz_wavefront_stage: a strip's wait stalled (status {status})")
 
 
 def _stage_plain(a, b, D1, D2, d0, d1, match, mismatch, gap):
@@ -655,6 +811,24 @@ def _sweeps(jobs, match, mismatch, gap, n_stages, stage) -> list:
     return states
 
 
+def _sweep_stages(jobs, match, mismatch, gap, n_stages) -> list:
+    """``_sweeps`` on the jobs' device: the plain version for CPU tensors;
+    on the card each stage is queued behind the last without waiting for
+    it, and the stages' status words are read once, before any result is
+    returned (a stalled stage raises as ``stage_batch`` does)."""
+    if jobs[0][0].device.type == "cpu":
+        return _sweeps(jobs, match, mismatch, gap, n_stages, stage_reference)
+    words = []
+
+    def stage(sweeps, *costs):
+        _check_sweeps(sweeps)
+        return _stage_launch(sweeps, *costs, words=words)
+
+    states = _sweeps(jobs, match, mismatch, gap, n_stages, stage)
+    _raise_stalled(*words)
+    return states
+
+
 def _as_chars(x) -> np.ndarray:
     return np.asarray(x).astype(np.int32).reshape(-1)
 
@@ -672,7 +846,7 @@ def sweep_frontier(a, b, m: int, n: int, d_end: int, match: int, mismatch: int, 
         raise ValueError(f"d_end {d_end} is past the last diagonal {m + n}")
     dev = platform.cuda_device(0) if device is None else torch.device(device)
     at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-    (f1, f2), = _sweeps([(at, bt, d_end)], match, mismatch, gap, n_stages, stage_batch)
+    (f1, f2), = _sweep_stages([(at, bt, d_end)], match, mismatch, gap, n_stages)
     return f1.cpu().numpy(), f2.cpu().numpy()
 
 
@@ -694,7 +868,7 @@ def wavefront_score_mim(a, b, match: int = 0, mismatch: int = 1, gap: int = 1,
         return wavefront_score(a, b, match, mismatch, gap, device=dev)
     up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     jobs = [(up(a), up(b), d_star), (up(a[::-1]), up(b[::-1]), (m + n) - d_star)]
-    (F1, F0), (B1, B0) = _sweeps(jobs, match, mismatch, gap, n_stages, stage_batch)
+    (F1, F0), (B1, B0) = _sweep_stages(jobs, match, mismatch, gap, n_stages)
     F1, F0, B1, B0 = torch.stack([F1, F0, B1, B0]).cpu().numpy()
     # The host combine of the JAX function. Paths through a cell of d*:
     # F[d*][i] + B[m+n-d*][m-i], each frontier a path cost to or from it.

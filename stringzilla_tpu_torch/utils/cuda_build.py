@@ -113,8 +113,10 @@ def load() -> ctypes.CDLL:
             lib.sz_wavefront.restype = i
             lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, p]
             lib.sz_wavefront_band.restype = i
-            lib.sz_wavefront_stage.argtypes = [p, i, i, i, i, p, p]
+            lib.sz_wavefront_stage.argtypes = [p, i, p, i, i, i, p, ll, p]
             lib.sz_wavefront_stage.restype = i
+            lib.sz_wavefront_stage_occupancy.argtypes = [i, p]
+            lib.sz_wavefront_stage_occupancy.restype = i
             lib.sz_fingerprints.argtypes = [p, p, p, i, p, p, p, p, i, p, p, p]
             lib.sz_fingerprints.restype = i
             lib.sz_find_search.argtypes = [p, ll, i, i, p, p, ll, p, ll, ll, p, i, p]
