@@ -29,10 +29,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    pairs of ~20,000 chars, and one batch under a frontier cap that splits
    it into groups (more launches than whole); ``band_batch`` against
    ``band_reference`` (distance, status, last rung, band cells walked) with
-   first rungs of 2 and 64 on near-duplicates of 1-20,000 chars and
-   unrelated pairs, one over the widest band and one with |m - n| over it;
-   then ``levenshtein_batch`` on the same pairs against Wagner-Fischer.
-   Exact equality.
+   first rungs of 2 and 64 on near-duplicates of 1-20,000 chars, unrelated
+   pairs (one over the widest band, one with |m - n| over it, n >> m) and
+   pairs of m at 32 R q - 1, 32 R q and 32 R q + 1 (the kernel's strips of
+   32 R rows) and a pair equal but for a tail (a ladder of several rungs),
+   on the card's plan and on plans cut to 1 and 2 SMs (groups
+   taking pairs in turns); then ``levenshtein_batch`` on the same pairs
+   against Wagner-Fischer. Exact equality.
 4. Main path, unit costs: ``LevenshteinDistances()`` through the default
    scope on the ``bench.py`` workload (128 x 32768 lowercase lines, lengths
    N(100, 12.5) clipped to [8, 128], seed ``STRINGWARS_SEED`` = 42) and on
@@ -62,16 +65,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (8 x 8 DNA reads of 5,000-15,000 bases, seed 44, half the candidates
    copies of a query with ~1% substitutions and indels, plus two ~100-base
    reads a side; classes A, C, G, T with +2 on the diagonal and -3
-   elsewhere, affine gaps -7/-2), which takes the flat kernel. Counts are
-   reset before these two calls and read after; the band, flat, column-DP
+   elsewhere, affine gaps -7/-2), which takes the flat kernel, and between
+   them ``LevenshteinDistances()`` on the band batch (8 x 8 copies of one
+   20,000-char string with 100 flips each, seed 51: 64 pairs in one band
+   launch). Counts are reset before these three calls and read after; the
+   band, flat, column-DP
    and byte-LUT kernels must all have launched. Each long pair must equal
    its kernel's plain version on the card; the long pair's distance must be
-   500; sampled reads must equal ``tests/oracles.py``'s Gotoh DP (the two
+   500; the band batch's distances must equal the flat kernel's, and its
+   first and last pairs the plain version's in all four columns; sampled
+   reads must equal ``tests/oracles.py``'s Gotoh DP (the two
    smallest short x long pairs and the short x short ones) and the numpy
    Gotoh DP (a long x long pair). Times three rows: the kernel alone, the
    engine up to its device result and the engine with the host pull, beside
-   the plain version; the band's bound counts the band cells it walked, and
-   the flat kernel is timed on the long pair beside it.
+   the plain version; the band's bound counts the band cells it walked on
+   the long pair. For the band prints its plan and, on the long pair, the
+   chain's steps over the rungs and the time a step; the flat kernel is
+   timed on the same pairs beside it.
 
 3d. The same for this slice's kernels: ``ops.fingerprints_kernel.
    fingerprint_all`` against ``fingerprint_reference`` with widths 1, 3
@@ -250,10 +260,22 @@ READ_LENGTHS = (5000, 15001)
 # Pairs of ~20,000 chars in phase 3c, m != n both ways
 WAVEFRONT_BIG = [(20000, 19000), (15000, 20011)]
 # Band pairs of phase 3c: near-duplicates (length, edit rate) and unrelated
-# pairs (m, n), of which 5000 x 4800 is over the widest band and 3000 x 10
-# has |m - n| over it
-BAND_NEAR = [(1, 0.0), (2, 0.5), (100, 0.03), (4097, 0.01), (20000, 0.003), (19000, 0.015)]
-BAND_FAR = [(1, 1), (1, 40), (300, 250), (5000, 4800), (3000, 10)]
+# pairs (m, n), of which 5000 x 4800 is over the widest band, 3000 x 10
+# has |m - n| over it, 200 x 1150 has n >> m and 1056 x 2000 takes the
+# widest band where every strip starts at column 0; 6000 chars at a
+# quarter edits a char certify on the widest band
+BAND_NEAR = [(1, 0.0), (2, 0.5), (100, 0.03), (4097, 0.01), (20000, 0.003), (19000, 0.015),
+             (6000, 0.25)]
+BAND_FAR = [(1, 1), (1, 40), (300, 250), (5000, 4800), (3000, 10), (200, 1150), (1056, 2000)]
+# A band pair of phase 3c that climbs a long ladder: (length, a tail of
+# random chars in b), equal before the tail, so each rung stops late and
+# prices the next one low
+BAND_TAIL = (2000, 200)
+# The cut band plans of phase 3c: (SMs, warps an SM)
+BAND_SMALL_CARD = [(1, 64), (2, 64)]
+# Phase 4c's band batch: queries, candidates, chars, flips a copy; its seed
+BAND_BATCH = (8, 8, 20_000, 100)
+BAND_BATCH_SEED = 51
 FP_LINES = 32768  # bench_fingerprints' docs of 60-179 printable bytes
 FP_DOCS = (2048, 2048, 16385)  # web-page dedup: count, lengths in [lo, hi)
 FP_BIG = 3  # phase 3d's 64 KB docs
@@ -1051,12 +1073,25 @@ def _check_wavefront_kernel(dev, sync, max_err):
     max_err["wavefront_flat"] = err
 
 
+def _band_first(m, n, k0):
+    """The band ladder's first half-width for an ``m x n`` pair: ``k0``
+    (at least 2), doubled until it reaches ``|m - n|``."""
+    k = max(k0, 2)
+    while k < abs(m - n):
+        k *= 2
+    return k
+
+
 def _check_band_kernel(dev, sync, max_err):
-    """Phase 3c, band tier: the band kernel against its plain version with
-    tiny and default first rungs, then ``levenshtein_batch`` (band, flat for
-    what it does not certify) against Wagner-Fischer."""
+    """Phase 3c, band tier: the band kernel against its plain version (all
+    four columns) with tiny and default first rungs, on the card's plan and
+    on plans cut to ``BAND_SMALL_CARD`` (turns of persistent groups, the
+    circle's ring wrapping from the last CTA to the first), then
+    ``levenshtein_batch`` (band, flat for what it does not certify) against
+    Wagner-Fischer."""
     import torch
-    from stringzilla_tpu_torch.ops.wavefront import (BAND_KMAX, band_batch, band_reference,
+    from stringzilla_tpu_torch.ops.wavefront import (BAND_KMAX, BAND_ROWS, band_batch,
+                                                     band_card, band_plan, band_reference,
                                                      levenshtein_batch)
 
     rng = np.random.default_rng(SEED + 6)
@@ -1067,22 +1102,48 @@ def _check_band_kernel(dev, sync, max_err):
         strings += [a, _mutate(rng, a, letters, rate)]
     for m, n in BAND_FAR:  # unrelated pairs
         strings += [rng.choice(letters, m), rng.choice(letters, n)]
+    for q in (1, 3):  # m at the edges of q strips of 32 R rows
+        for m in (32 * BAND_ROWS * q - 1, 32 * BAND_ROWS * q, 32 * BAND_ROWS * q + 1):
+            a = rng.choice(letters, m)
+            strings += [a, _mutate(rng, a, letters, 0.02)]
+    a = rng.choice(letters, BAND_TAIL[0])
+    b = a.copy()
+    b[-BAND_TAIL[1]:] = rng.choice(letters, BAND_TAIL[1])
+    strings += [a, b]
     lens = np.array([len(x) for x in strings])
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
     chars = torch.from_numpy(np.concatenate(strings).astype(np.int32)).to(dev)
     cols = (chars, offs[0::2], lens[0::2], offs[1::2], lens[1::2])
-    err = 0
+    err, longest = 0, 0
     for k0 in (2, 64):
-        got = band_batch(*cols, k0)
-        want = band_reference(*cols, k0)
-        sync()
-        err = max(err, int((got - want).abs().max()))
-        _check(torch.equal(got, want), f"band kernel != plain version with k0 = {k0}")
-        status = want[:, 1].tolist()
+        rungs = []
+        want = band_reference(*cols, k0, rungs=rungs)
+        status, last_k = want[:, 1].tolist(), want[:, 2].tolist()
         _check(1 in status and 2 in status, f"band statuses {status}: want 1 and 2")
-        print(f"[kernel] wavefront_band, k0 = {k0}: exact on {len(lens) // 2} pairs of "
-              f"1-{lens.max()} chars (status {status}, last k {want[:, 2].tolist()}, "
-              f"cells {want[:, 3].tolist()})")
+        _check((1, BAND_KMAX) in zip(status, last_k), f"no pair certified at k = {BAND_KMAX}")
+        ladders = collections.Counter(p for p, _, _ in rungs)
+        longest = max(longest, max(ladders.values()))
+        live = [(int(m), int(n)) for m, n in zip(lens[0::2], lens[1::2])
+                if m > 0 and n > 0 and _band_first(int(m), int(n), k0) <= BAND_KMAX]
+        seen = []
+        for card in [None, *BAND_SMALL_CARD]:
+            name = (f"{card[0]} SM{'s' if card[0] > 1 else ''} of {card[1]} warps" if card
+                    else "the card's plan")
+            got = band_batch(*cols, k0, card=card)
+            sync()
+            err = max(err, int((got - want).abs().max()))
+            _check(torch.equal(got, want), f"band kernel != plain version with k0 = {k0} on "
+                                           f"{name}")
+            if dev.type == "cuda":  # a CPU rehearsal runs the plain version: no plan
+                plan = band_plan(live, *(card or band_card(dev)))
+                name += (f": {plan.groups} groups of {plan.group_ctas} CTAs, "
+                         f"{-(-len(live) // plan.groups)} turns")
+            seen.append(name)
+        print(f"[kernel] wavefront_band, k0 = {k0}: exact in all four columns on "
+              f"{len(lens) // 2} pairs of 1-{lens.max()} chars (status {status}, last k "
+              f"{last_k}, cells {want[:, 3].tolist()}, up to {max(ladders.values())} rungs) "
+              f"on {len(seen)} plans (R = {BAND_ROWS}): {'; '.join(seen)}")
+    _check(longest >= 3, f"the longest ladder has {longest} rungs")
     dist = levenshtein_batch(*cols).cpu().tolist()
     wf = [_wagner_fischer(strings[2 * p].tobytes(), strings[2 * p + 1].tobytes())
           for p in range(len(dist))]
@@ -1119,6 +1180,37 @@ def _long_reads(rng):
     return [q.tobytes() for q in qs], [c.tobytes() for c in cs]
 
 
+def band_batch_strings():
+    """Phase 4c's band batch (``BAND_BATCH``): queries and candidates, as
+    bytes, each a copy of one lowercase string (seed ``BAND_BATCH_SEED``)
+    with random positions flipped by ``^= 1``. Every query against every
+    candidate differs by at most twice the flips: two rungs from the
+    default first rung of 64."""
+    rng = np.random.default_rng(BAND_BATCH_SEED)
+    nq, nc, length, flips = BAND_BATCH
+    base = rng.integers(97, 123, length).astype(np.uint8)
+    copies = []
+    for _ in range(nq + nc):
+        x = base.copy()
+        x[rng.choice(length, flips, replace=False)] ^= 1
+        copies.append(x.tobytes())
+    return copies[:nq], copies[nq:]
+
+
+def _band_chain(m, n, k, stop_row):
+    """Steps on the critical path of one band rung of half-width ``k``
+    (``stop_row`` 0 when it reached cell (m, n)): each strip of 32 * R rows
+    trails the one above by 64 R - 1 steps and a chunk, and the last
+    walked strip runs its own steps."""
+    from stringzilla_tpu_torch.ops.wavefront import BAND_CHUNK, BAND_ROWS
+
+    h = 32 * BAND_ROWS
+    strips = -(-(stop_row or m) // h)
+    r0, i_last = (strips - 1) * h + 1, min(m, strips * h)
+    steps = min(n, i_last + k) - max(0, r0 - k) + (i_last - r0) + 1
+    return (strips - 1) * (2 * h - 1 + BAND_CHUNK) + steps
+
+
 def _wavefront_main_path(dev, sync, report):
     """Phase 4c: pairs over 4096 bytes through the engines."""
     import torch
@@ -1126,7 +1218,8 @@ def _wavefront_main_path(dev, sync, report):
     from stringzilla_tpu_torch.ops import memory as memory_mod
     from stringzilla_tpu_torch.ops import similarity_dp as dp_mod
     from stringzilla_tpu_torch.ops import wavefront as wf_mod
-    from stringzilla_tpu_torch.ops.wavefront import (band_batch, band_reference, config_costs,
+    from stringzilla_tpu_torch.ops.wavefront import (band_batch, band_card, band_plan,
+                                                     band_reference, config_costs,
                                                      wavefront_batch, wavefront_reference)
     from tests.oracles import score_affine
 
@@ -1142,6 +1235,7 @@ def _wavefront_main_path(dev, sync, report):
     np.fill_diagonal(dna, 2)
     runs = [  # name, engine, inputs
         ("long pair", LevenshteinDistances(), pair),
+        ("band batch", LevenshteinDistances(), band_batch_strings()),
         ("long reads", NeedlemanWunschScores(b2c, dna, open=-7, extend=-2), reads),
     ]
     counters = (wf_mod.KERNEL_LAUNCHES, dp_mod.KERNEL_LAUNCHES, memory_mod.KERNEL_LAUNCHES)
@@ -1169,26 +1263,55 @@ def _wavefront_main_path(dev, sync, report):
         chars = torch.from_numpy(np.concatenate(strings).astype(np.int32)).to(dev)
         packed = (chars, offs[qi], ql[qi], offs[len(qs) + cj], cl[cj])
         kw = config_costs(cfg, torch.from_numpy(dna).to(dev))
-        band = name == "long pair"  # unit costs: the band kernel
+        band = name != "long reads"  # unit costs: the band kernel
         kernel = "wavefront_band" if band else "wavefront_flat"
         call = (lambda: band_batch(*packed)) if band else (lambda: wavefront_batch(*packed, **kw))
+        rungs = []
         alone = call()
-        t0 = time.perf_counter()
-        plain = band_reference(*packed) if band else wavefront_reference(*packed, **kw)
-        sync()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((alone.long() - plain.long()).abs().max())
-        _check(torch.equal(alone, plain), f"{name}: kernel != plain version")
+        if name == "band batch":
+            # The plain version takes minutes on all 64 pairs: it runs on
+            # the first and the last, all four columns; every distance is
+            # held against the flat kernel
+            t0 = time.perf_counter()
+            flat = wavefront_batch(*packed)
+            sync()
+            flat_ms = (time.perf_counter() - t0) * 1e3
+            ends = [0, len(qi) - 1]
+            t0 = time.perf_counter()
+            few = band_reference(chars, *(x[ends] for x in packed[1:]))
+            sync()
+            few_ms = (time.perf_counter() - t0) * 1e3
+            _check(torch.equal(alone[ends], few),
+                   f"{name}: kernel {alone[ends].tolist()} != plain version {few.tolist()}")
+            _check(bool((alone[:, 1] == 1).all()), f"{name}: band status {alone[:, 1]}")
+            err = max(int((alone[:, 0] - flat.long()).abs().max()),
+                      int((alone[ends] - few).abs().max()))
+            _check(err == 0, f"{name}: band distances != the flat kernel's")
+            plain, plain_ms = alone, None
+        else:
+            t0 = time.perf_counter()
+            plain = (band_reference(*packed, rungs=rungs) if band
+                     else wavefront_reference(*packed, **kw))
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = int((alone.long() - plain.long()).abs().max())
+            _check(torch.equal(alone, plain), f"{name}: kernel != plain version")
         scores = plain
         if band:
             scores = plain[:, 0]
             _check(bool((plain[:, 1] == 1).all()), f"{name}: band status {plain[:, 1]}")
         _check(np.array_equal(res.astype(np.int64)[qi, cj], scores.cpu().numpy()),
                f"{name}: engine result != plain version on the card")
-        if band:
+        if name == "long pair":
             _check(int(res[0, 0]) == 500, f"{name}: distance {res[0, 0]} != 500 flips")
             checked = (f"and the 500 flips (band: last k {int(plain[0, 2])}, "
-                       f"{int(plain[0, 3])} band cells walked)")
+                       f"{int(plain[0, 3])} band cells walked, rungs (k, stop row) "
+                       f"{[(k, r) for _, k, r in rungs]})")
+        elif band:
+            checked = (f"the flat kernel's distances (up to {int(plain[:, 0].max())}; last k "
+                       f"{sorted(set(plain[:, 2].tolist()))}; the flat kernel {flat_ms:.3f} ms "
+                       f"with its launches), and the plain version in all four columns on "
+                       f"pairs {ends} ({few.tolist()}, {few_ms:.3f} ms)")
         else:
             sub = lambda x, y: int(dna[b2c[x], b2c[y]])
             short_long = sorted(((i, j) for i, j in zip(qi, cj) if min(ql[i], cl[j]) < 200),
@@ -1204,11 +1327,12 @@ def _wavefront_main_path(dev, sync, report):
                                             -7, -2, True, False),
                    f"{name}: pair (0, 0) != the numpy Gotoh DP")
             checked = "and the Gotoh oracle on 2 short x long and the short x short pairs"
-        print(f"[engine] {name}: {len(qs)}x{len(cs)}, {len(qi)} long pairs, equal the "
-              f"plain version {checked}")
+        print(f"[engine] {name}: {len(qs)}x{len(cs)}, {len(qi)} long pairs, equal "
+              f"{'the plain version ' if plain_ms is not None else ''}{checked}")
 
         # GCUPS count the pairs' whole matrices; the band's bound counts
-        # only the band cells its rungs walked on this data
+        # only the band cells its rungs walked on this data, as the plain
+        # version counted them (not known for the whole batch)
         cells = float((ql[qi] * cl[cj]).sum())
         work = float(plain[:, 3].sum()) if band else cells
         nbytes = 4.0 * (ql[qi].sum() + cl[cj].sum()) + (32.0 if band else 4.0) * len(qi)
@@ -1224,20 +1348,39 @@ def _wavefront_main_path(dev, sync, report):
         engine_s = (time.perf_counter() - t0) / engine_runs
         kernel_ms = _time_ms(call, 5, sync)
         _profile(name, lambda: engine(qs, cs), sync, kernel_ms)
-        bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * work, nbytes)
-        report[kernel] = dict(
-            launches=launches[kernel], ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, max_abs_err=err)
-        print(f"[perf] {name} cells={cells:.0f} kernel-cells={work:.0f}: {kernel} "
-              f"{kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; engine to device "
+        if name == "band batch":
+            bound = "bound not computed (band cells known only on the pairs the plain version ran)"
+        else:
+            bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * work, nbytes)
+            bound = f"bound {bound_ms:.4f} ms ({bound_by})"
+            report[kernel] = dict(
+                launches=launches[kernel], ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, max_abs_err=err)
+        print(f"[perf] {name} cells={cells:.0f}"
+              + (f" kernel-cells={work:.0f}" if name != "band batch" else "")
+              + f": {kernel} {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
+              f"{cells / kernel_ms / 1e6:.3f} GCUPS; engine to device "
               f"result {device_s * 1e3:.3f} ms = {cells / device_s / 1e9:.3f} GCUPS; "
               f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
-              f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
-        if band:  # the flat kernel on the same pair, for comparison
-            flat_ms = _time_ms(lambda: wavefront_batch(*packed), 3, sync)
-            print(f"[perf] {name}: wavefront_flat on the same pair {flat_ms:.4f} ms = "
-                  f"{cells / flat_ms / 1e6:.3f} GCUPS, {flat_ms / kernel_ms:.2f}x the band's time")
+              + (f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
+                 if plain_ms is not None else "plain on all pairs not run; ")
+              + bound)
+        if not band or dev.type != "cuda":  # a CPU rehearsal runs the plain version: no plan
+            continue
+        # The band kernel's plan, for the long pair the model's chain (steps
+        # on the critical path), and the flat kernel on the same pairs
+        plan = band_plan([(int(ql[i]), int(cl[j])) for i, j in zip(qi, cj)], *band_card(dev))
+        line = (f"[perf] {name}: wavefront_band plan R = {plan.rows_per_lane}, a circle of "
+                f"{plan.warps} warps in {plan.group_ctas} CTAs a pair, {plan.groups} groups, "
+                f"{plan.ctas} CTAs")
+        if name == "long pair":
+            chain = sum(_band_chain(LONG_PAIR, LONG_PAIR, k, stop) for _, k, stop in rungs)
+            line += (f"; {chain} chain steps over {len(rungs)} rungs, "
+                     f"{kernel_ms * 1e3 / chain:.4f} us a step")
+        print(line)
+        flat_ms = _time_ms(lambda: wavefront_batch(*packed), 3, sync)
+        print(f"[perf] {name}: wavefront_flat on the same pairs {flat_ms:.4f} ms = "
+              f"{cells / flat_ms / 1e6:.3f} GCUPS, {flat_ms / kernel_ms:.2f}x the band's time")
 
 
 def _fp_inputs(dev, docs):

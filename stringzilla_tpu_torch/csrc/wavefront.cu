@@ -56,6 +56,7 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <vector>
 
 #include <cuda_runtime.h>
@@ -221,7 +222,7 @@ wavefront_tile(const int32_t* __restrict__ chars, const long long* __restrict__ 
 
 
 // ---------------------------------------------------------------------------
-// Band tier: the exact unit-cost Levenshtein distance of one long pair by
+// Band tier: the exact unit-cost Levenshtein distance of long pairs by
 // Ukkonen band doubling (replaces wavefront_pallas.py::_band_kernel).
 //
 // Any path that leaves the band |i - j| <= k pays more than k gaps, so when
@@ -234,53 +235,120 @@ wavefront_tile(const int32_t* __restrict__ chars, const long long* __restrict__ 
 // A rung that reaches (m, n) with D[m][n] > k has D[m][n] as its estimate.
 // Past kmax the pair gets status 2 and the host scores it on the flat tier.
 //
-// Layout. One CTA per pair. The matrix is cut into strips of 32 rows; warp
-// w walks strips w, w + B, ... (B below) with lane l on row 32 s + 1 + l, and
-// at step t lane l computes column jlo(s) + t - l, so the cell above is lane
-// l - 1's result of the previous step (a shuffle), the cell to the left the
-// lane's own, and the diagonal one the lane's previous "above", as in a flat
-// tile. A strip hands its last row to the next strip through a row buffer in
-// shared memory and publishes how many steps it has written, tagged with its
-// strip number; the next strip waits for the columns of each chunk of 16
-// steps before it reads them. So strips run pipelined, ~50 steps apart, with
-// no block barrier inside a rung. B, as many buffers as fit in 220 KiB (all
-// 32 up to k = 863, 27 at k = 1024, 13 at k = 2047), sets how many warps walk
-// strips: a warp's step is a chain of dependent latencies, so more strips
-// in flight go faster. A strip reuses the buffer of the strip that many
-// before it only after the chain of waits has put that buffer's reader far
-// ahead of it. A strip stops early only when a row of an earlier strip
-// already stopped the rung, and a wait gives up when its producer will
-// never come; a wait that spins too long marks the pair status 3 rather
-// than hang.
+// What bounds it on this card. A rung walks about 2k + 1 cells a row, 5-9
+// int32 operations each, but only the cells of one anti-diagonal are
+// independent: about k of them, and the m + n anti-diagonals follow one
+// another. So a rung is a chain of ~2m dependent steps, and its time is the
+// chain times the time of a step; the operations bound (all band cells over
+// 132 SMs of int32 issue) is far below it.
+//
+// The design: the pair's band rows in strips of 32 * R rows, a warp each, on
+// a circle of W warps spread over C CTAs of 4 warps (one a scheduler of an
+// SM), so that a step is as short as one warp alone on a scheduler makes it.
+// Lane l holds the R consecutive rows r0 + l * R + q of strip s (r0 = 32 R s
+// + 1) and at step t computes the cell of each at column jlo + t - l R - q:
+// R independent cells of one anti-diagonal, kept in registers. The cell
+// above is the row above's value of the previous step (lane l - 1's through
+// one __shfl_up_sync for the first row), the cell to the left the row's own,
+// the diagonal one the row above's of two steps before; the unit cost is
+// min(min(left, up) + 1, diag + (a != b)) through the DPX add-min
+// __viaddmin_s32, and a cell outside the band or the matrix is masked to
+// BIG (one compare of the step with the row's window), but in chunks where
+// every row of the strip is inside its band. b's chars pass down the lanes
+// as a shift register: lane 0 takes them from a chunk of C steps read a
+// chunk ahead, one char a lane. The rows' minima for the stop rule are one
+// min a cell. Strip s runs on warp s mod W and hands its bottom row to strip
+// s + 1 on the next warp of the circle through a ring of 64 tagged slots
+// (value and sequence number in one 64-bit store, relaxed at device scope,
+// under a predicate, so no fence and no branch): in shared memory inside a
+// CTA, in device memory from a CTA's last warp to the next CTA's first (the
+// last CTA's to the first). A stream's slots start at a sequence number
+// aligned so that a chunk's C slots lie side by side and each step stores
+// at a constant offset. The strip below reads C slots at once, one chunk
+// ahead of their use, checks their tags with one vote and reports how many
+// it consumed; the strip above looks at that count before it overwrites a
+// slot. Strip s + 1 trails strip s by 64 R - 1 steps and the chunk where
+// the band has left column 0 (32 R - 1 and the chunk before): the time of a
+// strip's first steps is the chain's time a strip, so they run unchecked
+// like the rest. W (from the host's plan, ops/wavefront.py band_plan) is
+// large enough that strip s is done, its warp free, before strip s + W's
+// first slot arrives, and that the rings never hold a cycle of waits, at
+// the widest band the ladder can reach. There is no row buffer: the strips
+// in flight depend on neither k nor shared memory. A wait reads the group's
+// flags in device memory only after ~16 us, so a slow read never delays
+// noticing a slot.
+//
+// Rungs run without the host. At the end of a rung the pair's C CTAs meet at
+// an arrive count in device memory; the last to arrive applies the ladder
+// rule, writes the pair's result when it is done, and releases the others
+// with the next k. The rings are zeroed between rungs: shared ones while the
+// CTA is between rungs, device ones a rung ahead in the other of two sets.
+// The rings and the barrier need every CTA of a group resident at once: the
+// plan sizes the grid from the card's occupancy, and the launch is a
+// cooperative one, for its guarantee that the whole grid is resident (there
+// is no grid-wide sync). A grid of G groups takes pairs g, g + G, ... in
+// turn. A strip stops early only once a row of an earlier strip stopped the
+// rung (so the stop row is the first), and its waits give up then. Every
+// wait is bounded: one that spins too long marks the group failed, every
+// later wait of the group gives up, and the pair gets status 3, which the
+// host raises on.
 
-constexpr int kBandWarps = 32;
-constexpr int kBandThreads = kBandWarps * 32;
+constexpr int kBandRows = 2;    // rows a lane R: a strip is a warp of 32 R rows
+constexpr int kBandWarps = 4;   // warps a CTA, one a scheduler of an SM
+constexpr int kBandChunk = 16;  // steps a strip reads from the strip above at once
+constexpr int kBandRing = 64;   // slots of a hand-off ring, then its consumed count
 constexpr int kBandMax = 2047;  // the widest half-width
-constexpr int kBandChunk = 16;  // steps between a strip's waits and between its publications
 constexpr int kBandRecord = 5;  // per pair: a_off, m, b_off, n, first k
 constexpr int kBig = 1 << 28;   // the JAX kernel's identity
-constexpr long long kTag = 1LL << 32;  // progress = strip * kTag + steps written
-constexpr long long kSpinLimit = 1LL << 24;
-constexpr int kBandRowWords = 55 << 10;  // row buffers: 220 KiB of shared memory
+constexpr int kNoChar = -1;     // a char of b past its ends: only masked cells compare it
+constexpr long long kWaitCycles = 1LL << 32;  // ~2 s at 1.98 GHz
+constexpr long long kQuietCycles = 1 << 15;  // ~16 us between a wait's looks at the flags
+constexpr long long kRowCycles = 8192;  // a rung barrier waits longer: this much a row more
+constexpr int kStalled = 3;
+constexpr unsigned long long kAbort = 1ULL << 32;  // a rung barrier stalled
+constexpr int kGroupBytes = 64;
 
-// A row buffer holds columns jlo - 1 .. jlo + 2k + 32 of a strip's last row;
-// as many buffers (and strips in flight) as fit, at most one per warp.
-__host__ __device__ constexpr int band_row_slots(int k) { return 2 * k + 34; }
-__device__ __forceinline__ int band_buffers(int k) {
-  return min(kBandWarps, kBandRowWords / band_row_slots(k));
+// One CTA group's state, in device memory zeroed by the host.
+struct BandGroup {
+  unsigned arrive;             // CTAs arrived at the group's rung barriers
+  int stop_key;                // INT_MAX - the rung's first row with no band cell <= k; 0: none
+  int result;                  // D[m][n] within the band, once the rung reached it
+  int failed;                  // a wait stalled: every later wait of the group gives up
+  unsigned long long release;  // barriers passed << 32 | the next rung's k (0: pair done)
+  long long cells;             // band cells the pair's rungs walked so far
+};
+static_assert(sizeof(BandGroup) <= kGroupBytes, "a group's state outgrew its bytes");
+
+struct BandArgs {
+  const int32_t* chars;
+  const long long* pairs;  // [n_pairs][kBandRecord]
+  long long* out;          // [n_pairs][4]
+  BandGroup* groups;       // [n_groups]
+  long long* rings;        // [2][grid][kBandRing + 1]: set, then the ring feeding CTA c's first warp
+  int n_pairs, kmax, group_ctas, n_groups;
+};
+
+// A strip's ring to the strip above or below: slots and the consumed count,
+// in shared or device memory.
+struct BandLink {
+  long long* slots;
+  long long* consumed;
+};
+
+// Ring words are read and written relaxed at device scope through generic
+// addresses (a volatile access would be ordered at system scope), and a
+// step's slot is stored under a predicate rather than a branch.
+__device__ __forceinline__ long long ring_load(const long long* p) {
+  long long v;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
 }
 
-struct BandShared {
-  long long progress[kBandWarps];  // of the row buffer with the same index
-  int stop_row, stop_strip, result, failed;
-  int rows[kBandRowWords];
-};
-
-struct Rung {
-  int res;       // D[m][n] within the band, when the rung reached it
-  int stop_row;  // the first row with no band cell <= k, or 0
-  bool failed;   // a wait spun past kSpinLimit
-};
+__device__ __forceinline__ void ring_store(long long* p, long long v, bool on = true) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t@q st.relaxed.gpu.b64 [%0], %1;\n\t}"
+      ::"l"(p), "l"(v), "r"(static_cast<int>(on)));
+}
 
 // Band cells of rows 1..r: sum of min(n, i + k) - max(0, i - k) + 1.
 __device__ long long band_row_cells(long long r, long long n, long long k) {
@@ -289,154 +357,328 @@ __device__ long long band_row_cells(long long r, long long n, long long k) {
   return c * (c + 1) / 2 + c * k + (r - c) * n - d * (d + 1) / 2 + r;
 }
 
-__device__ Rung band_rung(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int m,
-                          int n, int k, BandShared& sh) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  volatile long long* progress = sh.progress;
-  volatile int* stop_strip = &sh.stop_strip;
-  volatile int* failed = &sh.failed;
-  __syncthreads();  // the previous rung's readers are done
-  if (threadIdx.x < kBandWarps) sh.progress[threadIdx.x] = -kTag;
-  if (threadIdx.x == 0) {
-    sh.stop_row = sh.stop_strip = INT_MAX;
-    sh.result = kBig;
-    sh.failed = 0;
-  }
-  __syncthreads();
-
-  const int strips = (m + 31) / 32;
-  const int buffers = band_buffers(k), slots = band_row_slots(k);
-  for (int s = warp; s < strips && warp < buffers; s += buffers) {
-    if (*stop_strip < s || *failed) break;
-    const int r0 = 32 * s + 1, i = r0 + lane;
-    const bool row_ok = i <= m;
-    const int jlo = max(0, r0 - k), steps = min(n, r0 + 31 + k) - jlo + 32;
-    const int blo = max(0, i - k), bhi = min(n, i + k);
-    const int above_hi = min(n, r0 - 1 + k);            // last band column of row r0 - 1
-    const int jlo_prev = max(0, r0 - 32 - k);           // the strip above's jlo
-    const int jlo_next = max(0, r0 + 32 - k);           // the strip below's jlo
-    const int a_char = row_ok ? __ldg(a + i - 1) : -2;
-    const volatile int* above = sh.rows + (s % buffers) * slots;  // row r0 - 1, from strip s - 1
-    volatile int* below = sh.rows + ((s + 1) % buffers) * slots;  // row r0 + 31, for strip s + 1
-    volatile long long* mine = progress + (s + 1) % buffers;
-    if (lane == 31) *mine = s * kTag;  // the buffer is strip s's from now on
-
-    int cur = kBig, diag = kBig, row_min = kBig;
-    int j0 = jlo - lane;
-    int b_char = (j0 >= 1 && j0 <= n) ? __ldg(b + j0 - 1) : -1;
-    bool gone = false;
-    for (int t0 = 0; t0 < steps && !gone; t0 += kBandChunk) {
-      // Lane 0 reads row r0 - 1 at columns jlo + t0 .. jlo + t0 + 7 (and
-      // jlo - 1 first), once strip s - 1 has written them.
-      int c[kBandChunk];
-      if (lane == 0) {
-        if (s > 0) {
-          const int last = min(jlo + t0 + kBandChunk - 1, above_hi);
-          const long long want = (s - 1) * kTag + (last - jlo_prev + 32);
-          long long spins = 0;
-          while (progress[s % buffers] < want) {
-            if (*stop_strip < s || *failed) { gone = true; break; }
-            if (++spins > kSpinLimit) { *failed = 1; gone = true; break; }
-            __nanosleep(64);
-          }
-          __threadfence_block();
-        }
-        if (t0 == 0) {
-          const int col = jlo - 1;
-          diag = (col < 0 || col > above_hi) ? kBig : (s == 0 ? col : above[0]);
-        }
-#pragma unroll
-        for (int q = 0; q < kBandChunk; ++q) {
-          const int col = jlo + t0 + q;
-          c[q] = col > above_hi ? kBig : (s == 0 ? col : above[col - jlo + 1]);
-        }
-      }
-      gone = __shfl_sync(kFull, gone, 0);
-      if (gone) break;
-#pragma unroll
-      for (int q = 0; q < kBandChunk; ++q) {
-        const int t = t0 + q;
-        if (t >= steps) break;
-        // Branch-free: every lane runs the same instructions each step.
-        const int j = jlo + t - lane;
-        const int next_b = (j >= 0 && j < n) ? __ldg(b + j) : -1;  // b[j] for step t + 1
-        const int left_up = __shfl_up_sync(kFull, cur, 1);
-        const int up = lane == 0 ? c[q] : left_up;
-        const bool active = row_ok & (j >= blo) & (j <= bhi);
-        const int cell = j == 0 ? i : min(min(cur, up) + 1, diag + (a_char != b_char));
-        const int v = active ? cell : kBig;
-        row_min = min(row_min, v);
-        if (active & (i == m) & (j == n)) sh.result = v;
-        diag = up;
-        cur = v;
-        b_char = next_b;
-        const int idx = j - jlo_next + 1;
-        if ((lane == 31) & (idx >= 0) & (idx < slots)) below[idx] = v;
-      }
-      if (lane == 31) {  // publish the steps written
-        __threadfence_block();
-        *mine = s * kTag + min(t0 + kBandChunk, steps);
-      }
-    }
-    if (gone) break;
-    const unsigned over = __ballot_sync(kFull, row_ok && row_min > k);
-    if (over != 0 && lane == 0) {
-      atomicMin(&sh.stop_row, r0 + __ffs(over) - 1);
-      atomicMin(&sh.stop_strip, s);
-    }
-  }
-  __syncthreads();
-  Rung rung{sh.result, sh.stop_row == INT_MAX ? 0 : sh.stop_row, sh.failed != 0};
-  return rung;
+__device__ __forceinline__ int b_char(const int32_t* b, int n, int j) {
+  return j >= 0 && j < n ? __ldg(b + j) : kNoChar;
 }
 
-// One CTA per pair. out[pair] = {distance (0 unless certified), status
-// (1 certified, 2 distance > kmax, 3 a wait stalled), the last rung's k,
-// band cells walked (the rows of each rung up to its stopping strip)}.
-__global__ void __launch_bounds__(kBandThreads)
-wavefront_band(const int32_t* __restrict__ chars, const long long* __restrict__ pairs, int kmax,
-               long long* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char band_smem[];
-  BandShared& sh = *reinterpret_cast<BandShared*>(band_smem);
-  const long long* rec = pairs + static_cast<long long>(blockIdx.x) * kBandRecord;
-  const int32_t* a = chars + rec[0];
-  const int32_t* b = chars + rec[2];
-  const int m = static_cast<int>(rec[1]), n = static_cast<int>(rec[3]);
-  int k = static_cast<int>(rec[4]);
-  long long cells = 0;
-  int res = 0, status = 0;
-  while (true) {
-    const Rung rung = band_rung(a, b, m, n, k, sh);
-    if (rung.failed) {
-      status = 3;
-      break;
-    }
-    const int rows = rung.stop_row ? min(m, (rung.stop_row + 31) / 32 * 32) : m;
-    cells += band_row_cells(rows, n, k);
-    if (!rung.stop_row && rung.res <= k) {
-      res = rung.res;
-      status = 1;
-      break;
-    }
-    if (k >= kmax) {
-      status = 2;
-      break;
-    }
-    long long est = rung.res;
-    if (rung.stop_row) {
-      est = static_cast<long long>(k) * m / rung.stop_row;
-      est += est / 4;
-    }
-    long long next = 2LL * k;
-    while (next < min(est, static_cast<long long>(kmax))) next *= 2;
-    k = static_cast<int>(min(next, static_cast<long long>(kmax)));
+// Whether strip r0's waits should give up: a row above it stopped the rung,
+// or a wait of the group stalled. Lane 0 decides for the warp.
+__device__ __forceinline__ bool band_gone(BandGroup* grp, int r0) {
+  int gone = 0;
+  if ((threadIdx.x & 31) == 0) {
+    const volatile BandGroup* g = grp;
+    gone = g->failed != 0 || g->stop_key > INT_MAX - r0;
   }
-  if (threadIdx.x == 0) {
-    long long* o = out + 4LL * blockIdx.x;
-    o[0] = res;
-    o[1] = status;
-    o[2] = k;
-    o[3] = cells;
+  return __shfl_sync(kFull, gone, 0) != 0;
+}
+
+// One more round of a strip's bounded wait that began at `start` and last
+// looked at the group's flags at `looked`: false once it should give up, or
+// it spun past kWaitCycles (it marks the group failed). The flags lie in
+// device memory, so a wait reads them once every kQuietCycles: a read that
+// takes a microsecond in every round would delay noticing the data a strip
+// waits for. The clock is the same in every lane.
+__device__ __forceinline__ bool band_waiting(long long& start, long long& looked,
+                                             BandGroup* grp, int r0) {
+  const long long now = clock64();
+  if (start < 0) start = looked = now;
+  if (now - looked < kQuietCycles) return true;
+  looked = now;
+  if (now - start > kWaitCycles && (threadIdx.x & 31) == 0) atomicExch(&grp->failed, 1);
+  return !band_gone(grp, r0);
+}
+
+// Strip s of a rung of half-width k: rows r0 .. r0 + 32 R - 1 (r0 = 32 R s +
+// 1) of the pair's band, the last strip when `last`. `up` brings row r0 - 1
+// (not read by strip 0, whose row above is row 0), `down` takes row r0 + 32
+// R - 1 to strip s + 1 (not by the last strip); seq_in and seq_out count the
+// slots through each so far this rung. False when the strip gave up.
+__device__ bool band_strip(BandGroup* grp, const int32_t* __restrict__ a,
+                           const int32_t* __restrict__ b, int m, int n, int k, int s, bool last,
+                           BandLink up, BandLink down, unsigned& seq_in, unsigned& seq_out) {
+  constexpr int R = kBandRows, H = 32 * R, C = kBandChunk;
+  const int lane = threadIdx.x & 31;
+  const int r0 = s * H + 1;
+  if (band_gone(grp, r0)) return false;
+  const int jlo = max(0, r0 - k);  // the strip's first band column
+  const int i_last = min(m, r0 + H - 1);
+  const int steps = min(n, i_last + k) - jlo + (i_last - r0) + 1;
+  // Element e from above is row r0 - 1 at column jlo - 1 + e, e <= e_last
+  // (past it the row above is out of its band: BIG). Element e below is the
+  // bottom row at column jlo_next - 1 + e, computed at step e + off.
+  const int e_last = min(n, r0 - 1 + k) - jlo + 1;
+  const int off = max(0, r0 + H - k) - jlo + H - 2;
+  const int t_end = last ? n - jlo + (m - r0) : -1;  // the step of cell (m, n)
+  const int base = lane * R;
+  // A stream's first slot has the sequence number of the step that computes
+  // its element 0, modulo the chunk: so a chunk's C slots lie side by side
+  // in the ring and each step stores at a constant offset.
+  const auto align = [](unsigned seq, int first_step) {
+    return seq + ((first_step - static_cast<int>(seq)) & (C - 1));
+  };
+  if (s > 0) seq_in = align(seq_in, max(0, r0 - k) - max(0, r0 - H - k) + H - 2);
+  if (!last) seq_out = align(seq_out, off);
+
+  int ac[R], bc[R], D1[R], D2[R], tlo[R], wid[R], rmin[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = r0 + base + q;
+    if (i <= m) {  // row i's band, max(0, i - k) .. min(n, i + k), is computed at steps tlo .. tlo + wid
+      const int lo = max(0, i - k), hi = min(n, i + k);
+      tlo[q] = lo - jlo + base + q;
+      wid[q] = hi - lo;
+      ac[q] = __ldg(a + i - 1);
+    } else {  // past the matrix: masked at every step
+      tlo[q] = -(1 << 30);
+      wid[q] = 0;
+      ac[q] = kNoChar;
+    }
+    bc[q] = b_char(b, n, jlo - base - q - 1);
+    D1[q] = D2[q] = rmin[q] = kBig;
+  }
+  int x2 = kBig;  // the diagonal cell of the first row: lane l - 1's last row two steps before
+  int res = -1;
+  // The steps at which every row of the strip is inside its band (none when
+  // the strip reaches past row m).
+  int inside_from = INT_MAX, inside_to = INT_MIN;
+  if (r0 + H - 1 <= m) {
+    inside_from = tlo[0], inside_to = tlo[0] + wid[0];
+#pragma unroll
+    for (int q = 1; q < R; ++q) {
+      inside_from = max(inside_from, tlo[q]);
+      inside_to = min(inside_to, tlo[q] + wid[q]);
+    }
+    inside_from = __reduce_max_sync(kFull, inside_from);
+    inside_to = __reduce_min_sync(kFull, inside_to);
+  }
+
+  // Lane c < C of the chunk at step tau holds element tau + c + 1 (the cell
+  // above the strip at step tau + c) and the char of b entering the first
+  // row after step tau + c; lane C of the first chunk holds element 0 (the
+  // first step's diagonal).
+  const bool from_ring = s > 0, to_ring = !last;
+  const auto element = [&](int tau) { return tau == 0 && lane == C ? 0 : tau + lane + 1; };
+  const auto needs = [&](int tau) {
+    return from_ring && (lane < C || (tau == 0 && lane == C)) && element(tau) <= e_last;
+  };
+  long long word = 0;
+  unsigned consumed = 0, seen = 0;
+  int b_next = kNoChar;
+  const auto prefetch = [&](int tau) {
+    if (lane < C) b_next = b_char(b, n, jlo + tau + lane);
+    if (needs(tau)) word = ring_load(up.slots + ((seq_in + element(tau)) & (kBandRing - 1)));
+    if (to_ring && lane == 0) consumed = static_cast<unsigned>(ring_load(down.consumed));
+  };
+  prefetch(0);
+  const bool sends = lane == 31 && to_ring;  // the bottom row's lane
+
+  for (int tau = 0; tau < steps; tau += C) {
+    int above;
+    if (from_ring) {
+      const bool need = needs(tau);
+      const unsigned tag = seq_in + element(tau) + 1;
+      long long start = -1, looked = 0;
+      while (!__all_sync(kFull, !need || static_cast<unsigned>(word >> 32) == tag)) {
+        if (!band_waiting(start, looked, grp, r0)) return false;
+        if (need) word = ring_load(up.slots + ((tag - 1) & (kBandRing - 1)));
+      }
+      above = need ? static_cast<int>(static_cast<unsigned>(word)) : kBig;
+      if (lane == 0) ring_store(up.consumed, seq_in + min(tau + C, e_last) + 1);  // elements read
+    } else {  // row 0: D[0][j] = j in its band
+      const int col = jlo - 1 + element(tau);
+      above = col >= 0 && col <= min(n, k) ? col : kBig;
+    }
+    if (tau == 0) {
+      const int e0 = __shfl_sync(kFull, above, C);
+      if (lane == 0) x2 = e0;
+    }
+    const int b_in = b_next;
+    const int last_out = min(tau + C, steps) - 1 - off;
+    if (to_ring && last_out >= 0) {  // room in the ring for this chunk's slots
+      seen = __shfl_sync(kFull, consumed, 0);
+      long long start = -1, looked = 0;
+      while (static_cast<int>(seen - (seq_out + last_out - (kBandRing - 1))) < 0) {
+        if (!band_waiting(start, looked, grp, r0)) return false;
+        unsigned now = 0;
+        if (lane == 0) now = static_cast<unsigned>(ring_load(down.consumed));
+        seen = __shfl_sync(kFull, now, 0);
+      }
+    }
+    if (tau + C < steps) prefetch(tau + C);
+
+    // kWhole: every step of the chunk runs and none is cell (m, n);
+    // otherwise each step checks. kInside: every cell of the chunk lies in
+    // its row's band, so none is masked. A step sends its bottom cell down
+    // from step off on. The first off + C steps of a strip set when the
+    // strip below can start, so they run whole too.
+    const unsigned seq0 = seq_out + (tau - off);  // the slot of the chunk's first step
+    long long* const slots = down.slots + (seq0 & (kBandRing - 1));  // C side by side
+    const auto chunk = [&](auto whole, auto inside) {
+      constexpr bool kWhole = decltype(whole)::value, kInside = decltype(inside)::value;
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const int t = tau + u;
+        if (!kWhole && t >= steps) break;
+        const int from_up = __shfl_sync(kFull, above, u);
+        const int from_lane = __shfl_up_sync(kFull, D1[R - 1], 1);
+        const int x1 = lane == 0 ? from_up : from_lane;
+#pragma unroll
+        for (int q = R - 1; q >= 0; --q) {
+          const int left = D1[q];
+          const int upper = q > 0 ? D1[q - 1] : x1;
+          const int diag = q > 0 ? D2[q - 1] : x2;
+          // DPX: min(min(left, up) + 1, diag + sub) in one add-min
+          int v = __viaddmin_s32(min(left, upper), 1, diag + (ac[q] != bc[q]));
+          if (!kInside)
+            v = static_cast<unsigned>(t - tlo[q]) <= static_cast<unsigned>(wid[q]) ? v : kBig;
+          rmin[q] = min(rmin[q], v);
+          if (!kWhole && t == t_end && base + q == m - r0) res = v;
+          D2[q] = left;
+          D1[q] = v;
+        }
+        x2 = x1;
+        const int b_up = __shfl_sync(kFull, b_in, u);
+        const int b_lane = __shfl_up_sync(kFull, bc[R - 1], 1);
+#pragma unroll
+        for (int q = R - 1; q > 0; --q) bc[q] = bc[q - 1];
+        bc[0] = lane == 0 ? b_up : b_lane;
+        ring_store(slots + u,
+                   (static_cast<long long>(seq0 + u + 1) << 32) | static_cast<unsigned>(D1[R - 1]),
+                   sends && t >= off);
+      }
+    };
+    const bool whole = tau + C <= steps && !(tau <= t_end && t_end < tau + C);
+    if (whole && tau >= inside_from && tau + C - 1 <= inside_to)
+      chunk(std::true_type{}, std::true_type{});
+    else if (whole)
+      chunk(std::true_type{}, std::false_type{});
+    else
+      chunk(std::false_type{}, std::false_type{});
+  }
+
+  if (from_ring) seq_in += e_last + 1;
+  if (to_ring) seq_out += steps - off;
+  if (res >= 0) grp->result = res;
+  // The strip's first row whose band cells all exceed k stops the rung.
+  int first = INT_MAX;
+#pragma unroll
+  for (int q = R - 1; q >= 0; --q)
+    if (r0 + base + q <= m && rmin[q] > k) first = r0 + base + q;
+  first = __reduce_min_sync(kFull, first);
+  if (first != INT_MAX && lane == 0) atomicMax(&grp->stop_key, INT_MAX - first);
+  return true;
+}
+
+// The end of a rung for one CTA of the group (thread 0): arrive; the last
+// CTA applies the ladder rule (writing the pair's row when it is done) and
+// releases the others. Returns the next rung's k, 0 when the pair is done,
+// or kAbort when the barrier stalled (the pair's row then says status 3).
+__device__ unsigned long long band_barrier(const BandArgs& args, BandGroup* grp, int pair, int m,
+                                           int n, int k, unsigned gen) {
+  volatile BandGroup* v = grp;
+  long long* o = args.out + 4LL * pair;
+  const unsigned arrived = atomicAdd(&grp->arrive, 1u) + 1;
+  if (arrived == (gen + 1) * static_cast<unsigned>(args.group_ctas)) {  // every strip is done
+    __threadfence();
+    const int key = v->stop_key;
+    const int stop_row = key ? INT_MAX - key : 0;
+    const int res = v->result;
+    const int rows = stop_row ? min(m, (stop_row + 31) / 32 * 32) : m;
+    const long long cells = v->cells + band_row_cells(rows, n, k);
+    int status = 0, next = 0;
+    if (v->failed) {
+      status = kStalled;
+    } else if (!stop_row && res <= k) {
+      status = 1;
+    } else if (k >= args.kmax) {
+      status = 2;
+    } else {
+      long long est = res;
+      if (stop_row) {
+        est = static_cast<long long>(k) * m / stop_row;
+        est += est / 4;
+      }
+      long long nxt = 2LL * k;
+      while (nxt < min(est, static_cast<long long>(args.kmax))) nxt *= 2;
+      next = static_cast<int>(min(nxt, static_cast<long long>(args.kmax)));
+    }
+    if (status) {
+      o[0] = status == 1 ? res : 0;
+      o[1] = status;
+      o[2] = k;
+      o[3] = cells;
+    }
+    v->stop_key = 0;
+    v->cells = next ? cells : 0;
+    __threadfence();
+    v->release = (static_cast<unsigned long long>(gen + 1) << 32) | static_cast<unsigned>(next);
+    return static_cast<unsigned>(next);
+  }
+  const long long start = clock64(), limit = kWaitCycles + kRowCycles * m;
+  for (;;) {
+    const unsigned long long r = v->release;
+    if (static_cast<unsigned>(r >> 32) == gen + 1) {
+      __threadfence();
+      return r & 0xffffffffULL;
+    }
+    if (clock64() - start > limit) {
+      atomicExch(&grp->failed, 1);
+      o[1] = kStalled;
+      return kAbort;
+    }
+    __nanosleep(64);
+  }
+}
+
+// A grid of n_groups groups of group_ctas CTAs; group g takes pairs g,
+// g + n_groups, ... in turn, each through its whole ladder.
+__global__ void __launch_bounds__(kBandWarps * 32) wavefront_band(BandArgs args) {
+  constexpr int H = 32 * kBandRows;
+  constexpr int kRingWords = kBandRing + 1;
+  __shared__ long long shared_rings[kBandWarps * kRingWords];  // ring w feeds warp w > 0
+  __shared__ unsigned long long decision;
+  const int C = args.group_ctas;
+  const int group = static_cast<int>(blockIdx.x) / C;
+  const int cta = static_cast<int>(blockIdx.x) - group * C;
+  const int warp = threadIdx.x >> 5;
+  const int W = C * kBandWarps, g = cta * kBandWarps + warp;  // this warp's place in the circle
+  BandGroup* grp = args.groups + group;
+  const size_t set_words = static_cast<size_t>(gridDim.x) * kRingWords;
+  const size_t next_cta = static_cast<size_t>(group) * C + (cta + 1) % C;
+  unsigned gen = 0;  // rung barriers passed
+  for (int pair = group; pair < args.n_pairs; pair += args.n_groups) {
+    const long long* rec = args.pairs + static_cast<long long>(pair) * kBandRecord;
+    const int32_t* a = args.chars + rec[0];
+    const int32_t* b = args.chars + rec[2];
+    const int m = static_cast<int>(rec[1]), n = static_cast<int>(rec[3]);
+    const int strips = (m + H - 1) / H;
+    int k = static_cast<int>(rec[4]);
+    for (;;) {
+      // Zero this rung's shared rings and the device ring that feeds this
+      // CTA in the next rung (the set of the rung before this one).
+      long long* rings = args.rings + (gen & 1) * set_words;
+      long long* spare = args.rings + ((gen + 1) & 1) * set_words + blockIdx.x * kRingWords;
+      for (int x = threadIdx.x; x < kBandWarps * kRingWords; x += blockDim.x) shared_rings[x] = 0;
+      for (int x = threadIdx.x; x < kRingWords; x += blockDim.x) spare[x] = 0;
+      __syncthreads();
+      const auto link = [](long long* p) { return BandLink{p, p + kBandRing}; };
+      const BandLink up = warp > 0 ? link(shared_rings + warp * kRingWords)
+                                   : link(rings + blockIdx.x * kRingWords);
+      const BandLink down = warp + 1 < kBandWarps ? link(shared_rings + (warp + 1) * kRingWords)
+                                                  : link(rings + next_cta * kRingWords);
+      unsigned seq_in = 0, seq_out = 0;
+      for (int s = g; s < strips; s += W)
+        if (!band_strip(grp, a, b, m, n, k, s, s == strips - 1, up, down, seq_in, seq_out)) break;
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) decision = band_barrier(args, grp, pair, m, n, k, gen);
+      __syncthreads();
+      const unsigned long long next = decision;
+      ++gen;
+      if (next == kAbort) return;
+      if (next == 0) break;
+      k = static_cast<int>(next);
+    }
   }
 }
 
@@ -557,25 +799,62 @@ extern "C" cudaError_t sz_wavefront(int objective_max, int local, int affine, in
   return cudaSuccess;
 }
 
-// Band-tier distances of n_pairs unit-cost pairs, one CTA each, in one
-// launch added to *launches.
-//   chars   int32 chars of every pair;
-//   pairs   [n_pairs][5] int64 on the device: a_off, m, b_off, n (m, n >= 1)
-//           and the first rung's half-width k, |m - n| <= k <= kmax;
-//   kmax    the widest rung, at most 2047;
-//   out     [n_pairs][4] int64: distance, status, last k, band cells walked.
-// Status 3 (a stalled wait) is a fault of the kernel; the host raises on it.
+// CTAs (of 4 warps) of the band kernel that an SM holds at once.
+extern "C" cudaError_t sz_wavefront_band_occupancy(int* ctas_per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, wavefront_band,
+                                                       kBandWarps * 32, 0);
+}
+
+// Band-tier distances of n_pairs unit-cost pairs in one launch, added to
+// *launches.
+//   chars    int32 chars of every pair;
+//   pairs    [n_pairs][5] int64 on the device: a_off, m, b_off, n (m, n >= 1)
+//            and the first rung's half-width k, |m - n| <= k <= kmax;
+//   kmax     the widest rung, at most 2047;
+//   plan     [7] int64 on the host, from ops/wavefront.py band_plan: rows a
+//            lane R (2), steps a chunk (16), warps a CTA (4), CTAs a group,
+//            groups (at most n_pairs), ring slots (64), and the bytes of
+//            `handoff` it lays out: 64 a group (its state), then two sets of
+//            one ring (65 int64) a CTA;
+//   handoff  at least that many bytes of device memory, zeroed here;
+//   out      [n_pairs][4] int64: distance, status, last k, band cells
+//            walked, zeroed by the caller (a row a stalled group never
+//            reached keeps status 0).
+// Status 3 (a stalled wait) is a fault of the kernel; the host raises on any
+// status but 1 and 2. Launches on `stream` without synchronising, as a
+// cooperative launch so that every CTA is resident at once; refuses a plan
+// whose CTAs the card cannot hold at once (cudaErrorCooperativeLaunchTooLarge).
 extern "C" cudaError_t sz_wavefront_band(const int32_t* chars, const long long* pairs,
-                                         int n_pairs, int kmax, long long* out,
+                                         int n_pairs, int kmax, const long long* plan,
+                                         void* handoff, long long handoff_bytes, long long* out,
                                          long long* launches, cudaStream_t stream) {
   if (n_pairs <= 0) return cudaSuccess;
-  if (kmax < 2 || kmax > kBandMax) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(sizeof(BandShared));
-  cudaError_t err = cudaFuncSetAttribute(wavefront_band,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const long long ctas = plan[3], groups = plan[4];
+  const long long needed = groups * kGroupBytes + 2 * groups * ctas * (kBandRing + 1) * 8;
+  if (plan[0] != kBandRows || plan[1] != kBandChunk || plan[2] != kBandWarps || ctas < 1 ||
+      groups < 1 || groups > n_pairs || plan[5] != kBandRing || plan[6] != needed ||
+      handoff_bytes < needed || kmax < 2 || kmax > kBandMax)
+    return cudaErrorInvalidValue;
+  int device = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = sz_wavefront_band_occupancy(&per_sm);
   if (err != cudaSuccess) return err;
-  wavefront_band<<<n_pairs, kBandThreads, smem, stream>>>(chars, pairs, kmax, out);
-  err = cudaGetLastError();
+  if (!coop) return cudaErrorNotSupported;
+  if (groups * ctas > static_cast<long long>(per_sm) * sms) return cudaErrorCooperativeLaunchTooLarge;
+
+  err = cudaMemsetAsync(handoff, 0, static_cast<size_t>(needed), stream);
+  if (err != cudaSuccess) return err;
+  char* base = static_cast<char*>(handoff);
+  BandArgs args{chars, pairs, out, reinterpret_cast<BandGroup*>(base),
+                reinterpret_cast<long long*>(base + groups * kGroupBytes), n_pairs, kmax,
+                static_cast<int>(ctas), static_cast<int>(groups)};
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(wavefront_band),
+                                    dim3(static_cast<unsigned>(groups * ctas)),
+                                    dim3(kBandWarps * 32), params, 0, stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess) ++*launches;
   return err;
 }

@@ -35,8 +35,11 @@ Entry points:
         -> (n_pairs,) int32 tensor on chars.device
     levenshtein_batch(chars, a_off, a_len, b_off, b_len, k0=64)
         -> (n_pairs,) int32 tensor on chars.device
-    band_batch(chars, a_off, a_len, b_off, b_len, k0=64)
+    band_batch(chars, a_off, a_len, b_off, b_len, k0=64, card=None)
         -> (n_pairs, 4) int64 tensor on chars.device
+    band_plan(pairs, sms, warps_per_sm) -> BandPlan: how a band launch
+        spreads each pair's strips over a circle of warps in CTA groups
+    band_card(device) -> (SMs, warps of the band kernel an SM holds)
 
 The batched entries take pairs whose chars lie in one int32 tensor (offsets
 and lengths are host integer arrays). On CUDA tensors they run the
@@ -83,8 +86,8 @@ __all__ = ["wavefront_score", "wavefront_batch", "wavefront_reference",
            "levenshtein_long_pair", "levenshtein_batch", "band_batch",
            "band_reference", "config_costs", "wavefront_score_mim",
            "sweep_frontier", "stage_batch", "stage_reference", "stage_plan", "ladder",
-           "initial_state", "MAX_FLAT_CELLS", "BAND_KMAX", "KERNEL_LAUNCHES",
-           "SCRATCH_CAP_BYTES"]
+           "initial_state", "band_plan", "band_warps", "band_card", "MAX_FLAT_CELLS", "BAND_KMAX",
+           "KERNEL_LAUNCHES", "SCRATCH_CAP_BYTES"]
 
 BIG = 1 << 28  # the JAX kernel's identity; masked cells take it
 # Diagonal cells of one pair, max(m + 1, n): the JAX kernel's VMEM bound,
@@ -370,24 +373,29 @@ def wavefront_score(a, b, match: int = 0, mismatch: int = 1, gap: int = 1,
 
 
 def band_batch(chars: torch.Tensor, a_off, a_len, b_off, b_len,
-               k0: int = 64) -> torch.Tensor:
+               k0: int = 64, card: tuple[int, int] | None = None) -> torch.Tensor:
     """The band tier on pairs ``(chars[a_off:a_off+a_len],
     chars[b_off:b_off+b_len])``: an ``(n_pairs, 4)`` int64 tensor on
     ``chars.device`` of distance (0 unless certified), status (1 certified,
     2 distance over ``BAND_KMAX``), the last rung's half-width and the band
     cells walked. The Hopper kernel for CUDA tensors, the plain version for
-    CPU ones. An empty string certifies ``m + n`` with nothing walked."""
-    return _band(chars, a_off, a_len, b_off, b_len, k0, plain=False)
+    CPU ones. An empty string certifies ``m + n`` with nothing walked. The
+    kernel's launch is planned for ``card``, ``(SMs, warps an SM holds)``,
+    when given (a cut of the card, to run the plan's turns on few pairs),
+    else for ``band_card(chars.device)``."""
+    return _band(chars, a_off, a_len, b_off, b_len, k0, plain=False, card=card)
 
 
 def band_reference(chars: torch.Tensor, a_off, a_len, b_off, b_len,
-                   k0: int = 64) -> torch.Tensor:
+                   k0: int = 64, rungs: list | None = None) -> torch.Tensor:
     """Plain PyTorch version of the band kernel, on any device: the same
-    arguments and results as ``band_batch``."""
-    return _band(chars, a_off, a_len, b_off, b_len, k0, plain=True)
+    arguments and results as ``band_batch``. A list ``rungs`` gets ``(pair,
+    k, stop_row)`` for each rung walked, ``stop_row`` 0 when the rung
+    reached cell (m, n)."""
+    return _band(chars, a_off, a_len, b_off, b_len, k0, plain=True, rungs=rungs)
 
 
-def _band(chars, a_off, a_len, b_off, b_len, k0, plain):
+def _band(chars, a_off, a_len, b_off, b_len, k0, plain, rungs=None, card=None):
     a_off, a_len, b_off, b_len = _columns(chars, a_off, a_len, b_off, b_len)
     dev = chars.device
     # The first rung: k0, doubled until the band holds cell (m, n).
@@ -404,38 +412,155 @@ def _band(chars, a_off, a_len, b_off, b_len, k0, plain):
     if len(live):
         rec = np.ascontiguousarray(np.stack(
             [a_off[live], a_len[live], b_off[live], b_len[live], first[live]], axis=1))
-        run = _band_plain if plain or dev.type == "cpu" else _band_launch
-        result[torch.from_numpy(live).to(dev)] = run(chars, rec)
+        if plain or dev.type == "cpu":
+            walked = []
+            scores = _band_plain(chars, rec, walked)
+            if rungs is not None:
+                rungs.extend((int(live[p]), k, stop) for p, k, stop in walked)
+        else:
+            scores = _band_launch(chars, rec, card)
+        result[torch.from_numpy(live).to(dev)] = scores
     return result
 
 
-def _band_launch(chars, rec):
-    """Every pair through ``csrc/wavefront.cu``'s band kernel, one launch."""
+# The band kernel's plan: rows a lane it is built for (a strip is a warp of
+# 32 * R rows), warps a CTA (one a scheduler of an SM), steps a strip reads
+# from the strip above at once, slots of a hand-off ring, bytes of a CTA
+# group's state.
+BAND_ROWS = 2
+BAND_WARPS = 4
+BAND_CHUNK = 16
+BAND_RING = 64
+_BAND_GROUP_BYTES = 64
+
+
+def band_warps(m: int, n: int, kmax: int = BAND_KMAX) -> int:
+    """Warps in the circle of one ``m x n`` pair's strips of ``h = 32 *
+    BAND_ROWS`` rows, strip ``s`` on warp ``s mod W``. A strip runs at most
+    ``steps = min(2 kmax, n) + 2 h`` steps. Two bounds, at the widest band
+    the ladder can reach:
+
+    * no wait for a warp: where the band has left column 0, strip ``s +
+      1`` trails strip ``s`` by at least ``2 h - 1`` steps and a chunk, so
+      ``W (2 h - 1 + chunk) >= steps`` frees strip ``s``'s warp before
+      strip ``s + W``'s first slot arrives;
+    * no cycle of waits: strip ``s`` must be able to finish while strip
+      ``s + W``, on its warp, has not started. Each strip of the circle can
+      run ahead of the one below by the ``h - 2`` steps its bottom row
+      trails its top (strips that share column 0 trail by no more) and the
+      ring's slots past a chunk each side and an alignment of the stream,
+      ``ring - chunk + 2``; the last one a chunk less. So ``W (h + ring -
+      chunk) - chunk >= steps``.
+
+    A pair of fewer strips takes a warp a strip."""
+    h = 32 * BAND_ROWS
+    steps = min(2 * kmax, n) + 2 * h
+    no_wait = -(-steps // (2 * h - 1 + BAND_CHUNK))
+    no_cycle = -(-(steps + BAND_CHUNK) // (h + BAND_RING - BAND_CHUNK))
+    return max(1, min(max(no_wait, no_cycle), -(-m // h)))
+
+
+class BandPlan(NamedTuple):
+    """How one launch of ``csrc/wavefront.cu``'s band kernel lays out its
+    pairs: ``rows_per_lane`` R (``BAND_ROWS``; a strip is a warp of 32 * R
+    rows), ``chunk`` (``BAND_CHUNK``), ``warps_per_cta`` (``BAND_WARPS``), a
+    circle of ``warps`` warps in ``group_ctas`` CTAs per pair, ``groups``
+    such groups (group ``g`` takes pairs ``g``, ``g + groups``, ... in
+    turn), the grid's ``ctas`` with at most ``ctas_per_sm`` of them on an SM
+    when spread evenly, ``ring`` slots a hand-off ring, and the hand-off
+    buffer's ``handoff_bytes``: a group's state each, then two sets of one
+    ring a CTA."""
+    rows_per_lane: int
+    chunk: int
+    warps_per_cta: int
+    warps: int
+    group_ctas: int
+    groups: int
+    ctas: int
+    ctas_per_sm: int
+    ring: int
+    handoff_bytes: int
+
+    def record(self) -> list[int]:
+        """The plan as ``sz_wavefront_band`` reads it."""
+        return [self.rows_per_lane, self.chunk, self.warps_per_cta, self.group_ctas,
+                self.groups, self.ring, self.handoff_bytes]
+
+
+def band_plan(pairs, sms: int, warps_per_sm: int, kmax: int = BAND_KMAX) -> BandPlan:
+    """The plan of one band launch over ``pairs`` ``[(m, n)]`` on a card of
+    ``sms`` SMs, each holding ``warps_per_sm`` warps of the kernel at once.
+    Every pair gets a circle of ``band_warps`` warps, the most any pair
+    needs, in CTAs of ``BAND_WARPS``; as many groups as the card holds at
+    once (the rings and the rung barriers need every CTA resident), at most
+    one a pair."""
+    if not pairs or sms < 1:
+        raise ValueError(f"a band plan needs pairs and SMs, not {len(pairs)} pairs, {sms} SMs")
+    ctas = -(-max(band_warps(m, n, kmax) for m, n in pairs) // BAND_WARPS)
+    groups = min(len(pairs), sms * (warps_per_sm // BAND_WARPS) // ctas)
+    if not groups:
+        raise ValueError(f"a circle of {ctas} CTAs does not fit {sms} SMs of {warps_per_sm} warps")
+    grid = groups * ctas
+    return BandPlan(BAND_ROWS, BAND_CHUNK, BAND_WARPS, ctas * BAND_WARPS, ctas, groups, grid,
+                    -(-grid // sms), BAND_RING,
+                    groups * _BAND_GROUP_BYTES + 2 * grid * (BAND_RING + 1) * 8)
+
+
+_BAND_CARD: dict = {}
+
+
+def band_card(device) -> tuple[int, int]:
+    """(SMs, warps of the band kernel an SM holds at once) of the CUDA
+    ``device``, from the occupancy API: what ``band_batch`` plans for."""
+    dev = torch.device(device)
+    if dev.index not in _BAND_CARD:
+        lib = cuda_build.load()
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.sz_wavefront_band_occupancy(ctypes.byref(per_sm))
+        _raise_on(lib, err, "sz_wavefront_band_occupancy")
+        _BAND_CARD[dev.index] = (torch.cuda.get_device_properties(dev).multi_processor_count,
+                                 per_sm.value * BAND_WARPS)
+    return _BAND_CARD[dev.index]
+
+
+def _band_launch(chars, rec, card=None):
+    """Every pair through ``csrc/wavefront.cu``'s band kernel in one launch,
+    on the plan ``band_plan`` makes for ``card`` (``band_card`` of the
+    tensors' device when None). It raises when a pipeline wait stalled."""
     dev = chars.device
-    out = torch.empty((len(rec), 4), dtype=torch.int64, device=dev)
-    pairs = torch.from_numpy(rec).to(dev)
     lib = cuda_build.load()
+    plan = band_plan([(m, n) for _, m, _, n, _ in rec.tolist()], *(card or band_card(dev)))
+    out = torch.zeros((len(rec), 4), dtype=torch.int64, device=dev)
+    pairs = torch.from_numpy(rec).to(dev)
+    handoff = torch.empty(plan.handoff_bytes // 8, dtype=torch.int64, device=dev)
+    prec = np.array(plan.record(), dtype=np.int64)
     launches = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
         err = lib.sz_wavefront_band(chars.data_ptr(), pairs.data_ptr(), len(rec), BAND_KMAX,
+                                    prec.ctypes.data, handoff.data_ptr(), plan.handoff_bytes,
                                     out.data_ptr(), ctypes.byref(launches),
                                     torch.cuda.current_stream(dev).cuda_stream)
     KERNEL_LAUNCHES["wavefront_band"] += launches.value
     _raise_on(lib, err, "sz_wavefront_band")
-    if bool((out[:, 1] == 3).any()):  # a strip's wait stalled: a fault, never an answer
-        raise RuntimeError("sz_wavefront_band: a pipeline wait stalled (status 3)")
+    status = out[:, 1]
+    if bool(((status != 1) & (status != 2)).any()):  # a stalled wait: a fault, never an answer
+        raise RuntimeError(f"sz_wavefront_band: a pipeline wait stalled (statuses "
+                           f"{sorted(set(status.tolist()))})")
     return out
 
 
-def _band_plain(chars, rec):
+def _band_plain(chars, rec, walked):
     """The band kernel's ladder, a pair at a time, each rung a row at a
-    time over the band's ``2k + 1`` cells."""
+    time over the band's ``2k + 1`` cells; each rung's ``(pair, k,
+    stop_row)`` goes to ``walked``."""
     out = []
-    for a_off, m, b_off, n, k in rec.tolist():
+    for p, (a_off, m, b_off, n, k) in enumerate(rec.tolist()):
         a, b = chars[a_off: a_off + m], chars[b_off: b_off + n]
         cells, res, status = 0, 0, 0
         while True:
             got, stop_row, rung_cells = _band_rung(a, b, m, n, k)
+            walked.append((p, k, stop_row))
             cells += rung_cells
             if not stop_row and got <= k:
                 res, status = got, 1

@@ -111,8 +111,10 @@ def load() -> ctypes.CDLL:
             lib.sz_wavefront_scratch_words.restype = ll
             lib.sz_wavefront.argtypes = [i] * 8 + [p, p, i, p, p, p, ll, p, p, p]
             lib.sz_wavefront.restype = i
-            lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, p]
+            lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, ll, p, p, p]
             lib.sz_wavefront_band.restype = i
+            lib.sz_wavefront_band_occupancy.argtypes = [p]
+            lib.sz_wavefront_band_occupancy.restype = i
             lib.sz_wavefront_stage.argtypes = [p, i, p, i, i, i, p, ll, p]
             lib.sz_wavefront_stage.restype = i
             lib.sz_wavefront_stage_occupancy.argtypes = [i, p]

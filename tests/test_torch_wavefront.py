@@ -4,7 +4,8 @@ tensors, which run the plain PyTorch versions, and those versions
 themselves) against the JAX package's ``wavefront_score`` and
 ``levenshtein_long_pair`` (Pallas interpreter on the CPU) and the DP
 oracles of ``tests/oracles.py``, on the same numpy-seeded inputs, in all 16
-configurations of the flat tier. Tolerance: exact equality — every result
+configurations of the flat tier; and the band kernel's plan
+(``band_plan``), pure arithmetic. Tolerance: exact equality — every result
 is an integer score."""
 
 import itertools
@@ -18,8 +19,9 @@ from stringzilla_tpu.ops.wavefront_pallas import levenshtein_long_pair as jax_ba
 from stringzilla_tpu.ops.wavefront_pallas import wavefront_score as jax_score  # noqa: E402
 from stringzilla_tpu_torch.ops import wavefront as wf  # noqa: E402
 from stringzilla_tpu_torch.ops.wavefront import (  # noqa: E402
-    band_batch, band_reference, levenshtein_batch, levenshtein_long_pair,
-    wavefront_batch, wavefront_reference, wavefront_score)
+    BAND_CHUNK, BAND_RING, BAND_ROWS, BAND_WARPS, band_batch, band_plan,
+    band_reference, levenshtein_batch, levenshtein_long_pair, wavefront_batch,
+    wavefront_reference, wavefront_score)
 
 from . import oracles  # noqa: E402
 
@@ -316,3 +318,131 @@ def test_band_batch_equals_pairs_one_by_one(monkeypatch):
     assert dist.tolist() == [oracles.levenshtein(a.tobytes(), b.tobytes()) for a, b in pairs]
     assert batch[:, 1].tolist() == [1, 1, 1, 1, 2]  # |m - n| > BAND_KMAX
     assert flat_pairs == [1]
+
+
+# -- the band kernel's plan ----------------------------------------------------
+
+def _strip_steps(m, n, k):
+    """The most steps any strip of 32 * R rows runs on a rung of
+    half-width ``k``: its last row's last band column, from its first."""
+    h = 32 * BAND_ROWS
+    r0 = np.arange(0, m, h) + 1
+    i_last = np.minimum(m, r0 + h - 1)
+    return int((np.minimum(n, i_last + k) - np.maximum(0, r0 - k) + (i_last - r0) + 1).max())
+
+
+def _check_circle(plan, pairs, kmax):
+    """The circle of ``plan.warps`` warps covers every pair's strips at the
+    widest band: where warps take several strips each, none waits for a
+    warp (strips trail by 2 h - 1 steps and a chunk once the band has left
+    column 0), and the rings hold no cycle of waits (strip s finishes
+    before strip s + W starts: each strip runs ahead of the one below by
+    h - 2 steps and the ring's slack past a chunk each side)."""
+    h = 32 * plan.rows_per_lane
+    for m, n in pairs:
+        if -(-m // h) > plan.warps:
+            steps = _strip_steps(m, n, kmax)
+            assert plan.warps * (2 * h - 1 + BAND_CHUNK) >= steps
+            assert plan.warps * (h + BAND_RING - BAND_CHUNK) - BAND_CHUNK >= steps
+
+
+_PLAN_PAIRS = {
+    "long pair": [(100_000, 100_000)],
+    "64 of 20,000": [(20_000, 20_000)] * 64,
+    "mixed": [(1, 1), (5000, 4800), (100, 1100), (4097, 4100), (300, 250), (2, 1)],
+    "n >> m": [(200, 1150), (33, 2000), (1056, 2000)],
+    "strip edges": [(32 * BAND_ROWS * q + e, 32 * BAND_ROWS * q + e + 3)
+                    for q in (1, 3) for e in (-1, 0, 1)],
+}
+_CARDS = [(132, 64), (132, 16), (132, 48), (2, 16), (1, 16), (1, 64)]
+
+
+@pytest.mark.parametrize("kmax", [wf.BAND_KMAX, 300])
+@pytest.mark.parametrize("shape", list(_PLAN_PAIRS))
+@pytest.mark.parametrize("sms,warps_per_sm", _CARDS, ids=[f"{s}sm-{w}" for s, w in _CARDS])
+def test_band_plan_invariants(sms, warps_per_sm, shape, kmax):
+    """What the kernel relies on: each pair's CTAs are one contiguous group
+    of ``group_ctas``; the card holds every CTA at once; the circle of W
+    warps covers the strips in flight, so strip ``s`` is done before strip
+    ``s + W``'s input can arrive, at the widest band the ladder reaches;
+    the hand-off buffer holds the groups' states and two sets of rings; as
+    many groups as the card holds, at most one a pair. A card that cannot
+    hold one circle is refused."""
+    pairs = _PLAN_PAIRS[shape]
+    ctas = -(-max(wf.band_warps(m, n, kmax) for m, n in pairs) // BAND_WARPS)
+    fits = sms * (warps_per_sm // BAND_WARPS) // ctas
+    if not fits:
+        with pytest.raises(ValueError):
+            band_plan(pairs, sms, warps_per_sm, kmax)
+        return
+    plan = band_plan(pairs, sms, warps_per_sm, kmax)
+    assert (plan.rows_per_lane, plan.chunk, plan.warps_per_cta, plan.ring) == (
+        BAND_ROWS, BAND_CHUNK, BAND_WARPS, BAND_RING)
+    assert plan.group_ctas == ctas and plan.warps == plan.group_ctas * BAND_WARPS
+    assert plan.ctas == plan.groups * plan.group_ctas  # group g: CTAs g * C .. g * C + C - 1
+    assert plan.groups == min(len(pairs), fits)
+    assert plan.ctas <= sms * (warps_per_sm // BAND_WARPS)
+    assert plan.ctas_per_sm == -(-plan.ctas // sms)
+    _check_circle(plan, pairs, kmax)
+    assert plan.handoff_bytes == plan.groups * 64 + 2 * plan.ctas * (BAND_RING + 1) * 8
+    assert plan.record() == [BAND_ROWS, BAND_CHUNK, BAND_WARPS, plan.group_ctas, plan.groups,
+                             BAND_RING, plan.handoff_bytes]
+
+
+def test_band_plan_on_one_sm_and_refusals():
+    """A card cut to one SM of 64 warps still holds the longest pair's
+    circle (the pairs then in turns); a card that cannot hold one circle,
+    no pairs or no SM are refused."""
+    plan = band_plan([(100_000, 100_000)] * 3, 1, 64)
+    assert (plan.rows_per_lane, plan.group_ctas, plan.groups, plan.ctas) == (BAND_ROWS, 10, 1, 10)
+    small = band_plan([(97, 100)] * 5, 1, 4)
+    assert (small.group_ctas, small.groups, small.warps) == (1, 1, 4)
+    with pytest.raises(ValueError):
+        band_plan([(100_000, 100_000)], 1, 16)
+    with pytest.raises(ValueError):
+        band_plan([], 132, 64)
+    with pytest.raises(ValueError):
+        band_plan([(1000, 1000)], 0, 64)
+
+
+_EDGES = [(q, e) for q in (1, 3) for e in (-1, 0, 1)]
+
+
+@pytest.mark.parametrize("strips,edge", _EDGES, ids=[f"q{q}{e:+d}" for q, e in _EDGES])
+def test_band_reference_at_strip_edges(strips, edge):
+    """The plain band version at m = 32 R q + e, the shapes phase 3c runs
+    on the card, against the JAX ``levenshtein_long_pair`` and
+    Wagner-Fischer: a first rung of 64 certifies having walked the whole
+    band; one of 2 climbs a ladder to the same distance."""
+    m = 32 * BAND_ROWS * strips + edge
+    a, b = _near(_rng(m), m, max(1, m // 50))
+    cols = (torch.from_numpy(np.concatenate([a, b]).astype(np.int32)), [0], [m], [m], [len(b)])
+    want = oracles.levenshtein(a.tobytes(), b.tobytes())
+    assert want == jax_band(a, b, 64) == _wagner_fischer(a, b)
+    assert band_reference(*cols).tolist() == [[want, 1, 64, _band_cells(m, len(b), 64)]]
+    res, status, k, _ = band_reference(*cols, k0=2)[0].tolist()
+    assert (res, status) == (want, 1) and k >= want
+
+
+def test_band_batch_on_cpu_launches_nothing(monkeypatch):
+    """On CPU tensors ``band_batch`` runs the plain version: no plan, no
+    launch, nothing counted, even for pairs that would take a circle of
+    many CTAs and several rungs on the card."""
+    def refuse(*args, **kw):
+        raise AssertionError("the CPU path reached the kernel")
+
+    monkeypatch.setattr(wf, "_band_launch", refuse)
+    monkeypatch.setattr(wf, "band_plan", refuse)
+    monkeypatch.setattr(wf, "band_card", refuse)
+    before = dict(wf.KERNEL_LAUNCHES)
+    rng = _rng(11)
+    pairs = [_near(rng, 1500, 40), _near(rng, 97, 2), _near(rng, 64, 30)]
+    strings = [x for p in pairs for x in p]
+    chars = torch.from_numpy(np.concatenate(strings).astype(np.int32))
+    lens = np.array([len(x) for x in strings])
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    cols = (chars, offs[0::2], lens[0::2], offs[1::2], lens[1::2])
+    got = band_batch(*cols, k0=2)
+    assert torch.equal(got, band_reference(*cols, k0=2))
+    assert got[:, 0].tolist() == [oracles.levenshtein(a.tobytes(), b.tobytes()) for a, b in pairs]
+    assert wf.KERNEL_LAUNCHES == before
