@@ -13,12 +13,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``myers_reference`` on the same device tensors, exact int32 equality, at
    both kernel tiers (1-4 words per thread; 5-64 words per warp), word
    boundary lengths, empty strings and out-of-range char values.
-3b. The same for this slice's kernels: ``ops.similarity_dp.similarity``
-   against ``similarity_reference`` in all 16 configurations (min/max,
-   global/local, linear/affine, uniform/class costs) at rows 8, 40, 136,
-   1032 and 4104, with query lengths 0 and rows - 1, candidate lengths 0, 1
-   and 31-33 around the 32-row strip, class ids >= 32, and negative and
-   wrong-sign costs; ``ops.memory.lookup_transform`` against
+3b. The same for this slice's kernels: ``ops.similarity_dp.similarity``,
+   each route forced (``similarity_dp``, a thread a pair;
+   ``similarity_dp_warp``, a warp a pair), against ``similarity_reference``
+   in all 16 configurations (min/max, global/local, linear/affine,
+   uniform/class costs) at rows 8, 40, 136, 1032, 2056 and 4104, with
+   query lengths 0 and rows - 1, 31-33 around the 32-row strip, 1023-1025
+   and 2048/2049 around the warp route's 1,024-row passes, candidate
+   lengths 0, 1 and 31-33, class ids >= 32, negative and wrong-sign costs,
+   and under scratch caps that split a launch; ``ops.memory.lookup_transform`` against
    ``lut[x.long()]`` at lengths 0, 1, 15, 16, 17 and 2**24 + 3, and on a
    buffer that is not 16-byte aligned. Exact equality.
 3c. The same for the long-pair kernels: ``ops.wavefront.wavefront_batch``
@@ -52,8 +55,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    [100, 1024], its symmetric random 32x32 table), with linear gaps -5/-5
    and affine gaps -10/-1, then ``LevenshteinDistances(match=0,
    mismatch=2, open=3, extend=1)`` on 64 x 4096 ``bench.py`` lines. Counts
-   are reset before these five calls and read after; both the column-DP and
-   the byte-LUT kernel must have launched. Each result must equal the plain
+   are reset before these five calls and read after; both column-DP routes
+   (the proteins take the warp route, the lines the thread route) and the
+   byte-LUT kernel must have launched. Each result must equal the plain
    version on the same packed device inputs and a numpy Gotoh DP on sampled
    pairs. Then the same timings, and the LUT kernel's at the protein
    candidates' blob size beside one ``lut[x.long()]`` call.
@@ -78,8 +82,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    smallest short x long pairs and the short x short ones) and the numpy
    Gotoh DP (a long x long pair). Times three rows: the kernel alone, the
    engine up to its device result and the engine with the host pull, beside
-   the plain version; the band's bound counts the band cells it walked on
-   the long pair. For the band prints its plan and, on the long pair, the
+   the plain version; the band's bound counts the band cells the plain
+   version walked on the long pair and, on the batch, those of the rung
+   that certifies each pair's verified distance (``_certifying_rung_cells``).
+   Every DP bound counts a cell's int32 issue slots with each add fused into
+   its min or max by DPX (``_dp_ops_per_cell``), the unfused count printed
+   beside it. For the band prints its plan and, on the long pair, the
    chain's steps over the rungs and the time a step; the flat kernel is
    timed on the same pairs beside it.
 
@@ -151,8 +159,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    high word), and on 2**19 + 777 tokens (grid-stride loops); ``hash_long``
    against ``hash_long_reference`` on every length 65-300, 64k - 1, 64k and
    64k + 1 for k up to 16 and ``benches/tpu_sweep.py``'s 8 and 16 KiB
-   buckets, at the same seeds, and on one 3 MiB string against the host
-   ``sz_hash``; ``ops.aes_kernel.fill_random_device`` against
+   buckets, at the same seeds (strings under ``WIDE_BYTES`` go to
+   ``hash_long``, a quad a string, the others to ``hash_long_wide``, a warp
+   a string), on ``hash_long_wide``'s ring edges (mP - 1..mP + 1 full
+   chunks, P = 32) and the quad's last lengths at odd offsets and in blobs
+   that end at the string's last byte, and on one 3 MiB string against the
+   host ``sz_hash``; ``ops.aes_kernel.fill_random_device`` against
    ``fill_random_reference`` and the host ``fill_random`` at lengths 1,
    15, 16, 17, 5000, 40000 and 2**24 with nonces 0, 123456789, 2**63 + 9
    and 2**64 - 3 (the counter wraps); then every vector of
@@ -170,8 +182,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    2**16 tokens of 4-47 bytes and ``tpu_sweep``'s 61 messages, and
    ``Strs.sort`` and ``argsort_strings(..., prefer_device=True)`` on 2**20
    of the words, all with no ``device=``. Counts are reset before each of
-   the five kernel paths and read after; ``hash_short``, ``hash_long`` and
-   ``fill_random`` must have launched. ``intersect`` must equal Python's
+   the five kernel paths and read after; ``hash_short``, ``hash_long``
+   (the lines), ``hash_long_wide`` (the documents) and ``fill_random``
+   must have launched. ``intersect`` must equal Python's
    sets (first occurrences), ``Strs.hashes`` the plain versions on the
    card over the whole collection and the host ``hash_batch`` on 10,000
    sampled strings (a second call must reuse the mirror), documents the
@@ -340,9 +353,7 @@ MIM_RATE = 0.005
 INT32_OPS_PER_S = 67e12 / 4
 HBM_BYTES_PER_S = 3.35e12
 # int32 ops the kernels' recurrences need: Myers, 17 64-bit ops per 64-bit
-# word per candidate char, two int32 ops each; the column DP, per cell,
-# 2 adds + 2 min/max + the substitution (linear), 5 adds + 4 min/max + the
-# substitution (affine), plus the clamp and the running best when local.
+# word per candidate char, two int32 ops each.
 MYERS_OPS_PER_WORD_STEP = 34
 # f64 has 64 lanes an SM a clock, half of float32's 128; counted as
 # instructions (a fused multiply-add is one), like the int32 rate. The
@@ -362,8 +373,50 @@ AES_OPS = 48
 BLOCK_OPS = AES_OPS + 20
 
 
-def _dp_ops_per_cell(cfg) -> int:
+# int32 issue slots a DPX add-min/add-max (__viaddmin_s32 and kin, one
+# VIADDMNMX) takes: tools/dp_hash_sweep.py's dpx part measured 61.86
+# __viaddmin_s32 and 61.82 __viaddmax_s32_relu an SM a clock against 62.02
+# plain int32 mins (NVIDIA H100 80GB HBM3, 700 W), so one.
+DPX_SLOTS = 1.0
+
+
+def _dp_ops_per_cell(cfg) -> float:
+    """int32 issue slots a DP cell needs on this card, each add fused into
+    its min or max by DPX: linear, an add for the diagonal and two
+    add-min/max; affine, two adds, three add-min/max and a min/max; local,
+    the running best, and for min the clamp at 0 (max clamps in the add-max's
+    _relu form). The substitution is left out: a query profile read in
+    16-byte loads brings it under one instruction a cell. Used by every DP
+    bound (the column DP, the flat, band and stage kernels)."""
+    plain, dpx = (3, 3) if cfg.is_affine else (1, 2)
+    if cfg.is_local:
+        plain += 2 if cfg.objective == "min" else 1
+    return plain + DPX_SLOTS * dpx
+
+
+def _dp_ops_per_cell_unfused(cfg) -> int:
+    """The count of the bounds before DPX was counted: every add and every
+    min/max one operation, plus the substitution, and the clamp and the
+    running best when local. Printed beside the bound so that shares compare
+    with those of older runs; no bound uses it."""
     return (10 if cfg.is_affine else 5) + (2 if cfg.is_local else 0)
+
+
+def _certifying_rung_cells(m: int, n: int, distance: int, k0: int = 64) -> int:
+    """Band cells of the band ladder's rung that certifies an m x n pair of
+    this distance: half-width k, the first rung's k0 doubled until the band
+    holds cell (m, n), then until k >= distance (ops/wavefront.py _band),
+    row i holding min(n, i + k) - max(0, i - k) + 1 cells (_band_rung's
+    count). The rungs before it, and any the ladder skips to, are left out,
+    so this never counts more than the ladder walks."""
+    from stringzilla_tpu_torch.ops.wavefront import BAND_KMAX
+
+    k = max(k0, 2)
+    while k < abs(m - n) or k < distance:
+        k *= 2
+    k = min(k, BAND_KMAX)
+    i = np.arange(1, m + 1)
+    return int((np.minimum(n, i + k) - np.maximum(0, i - k) + 1).sum())
 
 
 def _bound(ops: float, nbytes: float):
@@ -665,12 +718,13 @@ def _dp_block(rng, rows, q_lens, cand_len, c_lens, lo, hi):
 
 
 def _check_dp_kernel(dev, sync, max_err):
-    """Phase 3b: the column DP in all 16 configurations against its plain
-    version."""
+    """Phase 3b: the column DP's two routes, forced, in all 16 configurations
+    against its plain version: strip edges (query rows 31-33), the warp
+    route's pass edges (1,023-1,025, 2,048/2,049) and the longest block."""
     import torch
     from stringzilla_tpu_torch.ops import similarity_dp as dp_mod
     from stringzilla_tpu_torch.ops.similarity import similarity_reference
-    from stringzilla_tpu_torch.ops.similarity_dp import similarity
+    from stringzilla_tpu_torch.ops.similarity_dp import ROUTES, similarity
 
     rng = np.random.default_rng(SEED + 3)
     table = torch.from_numpy(rng.integers(-8, 9, (32, 32)).astype(np.int32)).to(dev)
@@ -678,7 +732,8 @@ def _check_dp_kernel(dev, sync, max_err):
         (8, [0, 7, 3, 5], 40, 300),
         (40, [0, 39, 31, 32, 33], 70, 300),
         (136, [0, 135, 64, 65], 140, 200),
-        (1032, [0, 1031, 517], 100, 100),
+        (1032, [0, 1031, 1023, 1024, 1025, 517], 100, 100),
+        (2056, [2048, 2049, 0, 1], 64, 40),
         (4104, [0, 4103], 40, 64),
     ]
     err = 0
@@ -690,37 +745,40 @@ def _check_dp_kernel(dev, sync, max_err):
                    _dp_block(rng, rows, q_lens, cand_len, c_lens, 0, 40)],
             False: [torch.from_numpy(x).to(dev) for x in
                     _dp_block(rng, rows, q_lens, cand_len, c_lens, -2, 6)]}
-        for cfg in _dp_configs(k):
+        for cfg in _dp_configs(k % 5):
             args = blocks[cfg.uses_classes]
-            got = similarity(*args, cfg, table)
             want = similarity_reference(*args, cfg, table)
-            sync()
-            err = max(err, int((got.long() - want.long()).abs().max()))
-            _check(torch.equal(got, want), f"similarity kernel != plain version "
-                   f"at rows {rows} in {cfg}")
-        print(f"[kernel] similarity_dp rows={rows} cand_len={cand_len} "
-              f"{len(q_lens)}x{nc}: 16 configurations exact")
+            for route in ROUTES:
+                got = similarity(*args, cfg, table, route=route)
+                sync()
+                err = max(err, int((got.long() - want.long()).abs().max()))
+                _check(torch.equal(got, want), f"similarity kernel ({route} route) != plain "
+                       f"version at rows {rows} in {cfg}")
+        print(f"[kernel] similarity_dp, similarity_dp_warp rows={rows} cand_len={cand_len} "
+              f"{len(q_lens)}x{nc} (query rows {q_lens}): 16 configurations exact on both routes")
     # A scratch cap below one launch's need splits it over query and
     # candidate ranges; the last shape's affine configurations then run as
-    # 2 x 64 and as 1 x 8 launches.
+    # 2 x 64 and as 1 x 8 launches on either route.
     cap = dp_mod.SCRATCH_CAP_BYTES
     try:
         for dp_mod.SCRATCH_CAP_BYTES in (cand_len * 8, cand_len * 8 * 2 * 9):
-            for cfg in _dp_configs(len(shapes) - 1):
+            for cfg in _dp_configs((len(shapes) - 1) % 5):
                 if cfg.is_affine:
                     args = blocks[cfg.uses_classes]
-                    before = dp_mod.KERNEL_LAUNCHES["similarity_dp"]
-                    got = similarity(*args, cfg, table)
-                    launched = dp_mod.KERNEL_LAUNCHES["similarity_dp"] - before
                     want = similarity_reference(*args, cfg, table)
-                    sync()
-                    _check(launched > 1 and torch.equal(got, want),
-                           f"similarity kernel split over {launched} launches "
-                           f"!= plain version in {cfg}")
+                    for route, name in ROUTES.items():
+                        before = dp_mod.KERNEL_LAUNCHES[name]
+                        got = similarity(*args, cfg, table, route=route)
+                        launched = dp_mod.KERNEL_LAUNCHES[name] - before
+                        sync()
+                        _check(launched > 1 and torch.equal(got, want),
+                               f"similarity kernel ({route} route) split over {launched} "
+                               f"launches != plain version in {cfg}")
     finally:
         dp_mod.SCRATCH_CAP_BYTES = cap
-    print("[kernel] similarity_dp split over query and candidate ranges: exact")
-    max_err["similarity_dp"] = err
+    print("[kernel] similarity_dp, similarity_dp_warp split over query and candidate ranges: "
+          "exact")
+    max_err["similarity_dp"] = max_err["similarity_dp_warp"] = err
 
 
 def _check_lut_kernel(dev, sync, max_err):
@@ -877,7 +935,7 @@ def _dp_main_path(dev, sync, report):
     from stringzilla_tpu_torch.ops.memory import lookup_reference, lookup_transform
     from stringzilla_tpu_torch.ops.pack_device import device_tape, pack_chars
     from stringzilla_tpu_torch.ops.similarity import similarity_reference
-    from stringzilla_tpu_torch.ops.similarity_dp import similarity
+    from stringzilla_tpu_torch.ops.similarity_dp import ROUTES, dp_plan, similarity
 
     b2c, table, prot_q, prot_c = _proteins(np.random.default_rng(SEED))
     line_q, line_c = _lines(np.random.default_rng(SEED))
@@ -960,21 +1018,32 @@ def _dp_main_path(dev, sync, report):
         for _ in range(engine_runs):
             engine(*inputs)
         engine_s = (time.perf_counter() - t0) / engine_runs
+        plan = dp_plan(rows, len(qs), cand_len, len(cs), cfg.is_affine,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
         kernel_ms = _time_ms(lambda: similarity(*packed, cfg, table_t), 10, sync)
         plain_ms = _time_ms(lambda: similarity_reference(*packed, cfg, table_t), 1, sync,
                             batches=1)
         _profile(name, lambda: engine(*inputs), sync, kernel_ms)
         bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * cells, nbytes)
-        if name == "nw-affine":  # the reference's CUDA row (BASELINE.md:34)
-            report["similarity_dp"] = dict(
-                launches=launches["similarity_dp"], ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        unfused_ms = _bound(_dp_ops_per_cell_unfused(cfg) * cells, nbytes)[0]
+        kernel = ROUTES[plan.route]
+        # the reference's CUDA row (BASELINE.md:34) for the warp route, the
+        # weighted lines for the thread route
+        if name in ("nw-affine", "lev-weighted"):
+            report[kernel] = dict(launches=launches[kernel], ms=kernel_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                                  max_abs_err=err)
         print(f"[perf] {name} rows={rows} cand_len={cand_len} cells={cells:.0f}: "
               f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
-              f"kernel {kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; "
+              f"kernel ({plan.route} route, {kernel}) {kernel_ms:.4f} ms "
+              f"[{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = {cells / kernel_ms / 1e6:.3f} GCUPS; "
               f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
-    report["similarity_dp"]["max_abs_err"] = err
+              f"bound {bound_ms:.4f} ms ({bound_by}, {_dp_ops_per_cell(cfg):g} slots a cell), "
+              f"{100 * bound_ms / kernel_ms:.1f}% of it; with the unfused count "
+              f"({_dp_ops_per_cell_unfused(cfg)} a cell) {unfused_ms:.4f} ms, "
+              f"{100 * unfused_ms / kernel_ms:.1f}%")
+    for kernel in ROUTES.values():
+        report[kernel]["max_abs_err"] = err
 
     lut_t = torch.from_numpy(b2c).to(dev)
     for name, blob in (("protein candidates' blob", device_tape(prot_ct, dev).data),
@@ -1244,8 +1313,11 @@ def _wavefront_main_path(dev, sync, report):
     results = [engine(*inputs) for _, engine, inputs in runs]
     launches = {k: v for counts in counters for k, v in counts.items()}
     print(f"[engine] launches on the long-pair main path: {launches}")
-    for k in ("wavefront_band", "wavefront_flat", "similarity_dp", "byte_lut"):  # stage: 4g
+    for k in ("wavefront_band", "wavefront_flat", "byte_lut"):  # stage: 4g
         _check(launches[k] > 0, f"{k} was not launched on the main path")
+    # the short reads' 2 x 2 pairs: the column DP on the route its plan picks
+    _check(launches["similarity_dp"] + launches["similarity_dp_warp"] > 0,
+           "the column DP was not launched on the main path")
 
     for (name, engine, (qs, cs)), res in zip(runs, results):
         cfg = engine.config
@@ -1331,10 +1403,15 @@ def _wavefront_main_path(dev, sync, report):
               f"{'the plain version ' if plain_ms is not None else ''}{checked}")
 
         # GCUPS count the pairs' whole matrices; the band's bound counts
-        # only the band cells its rungs walked on this data, as the plain
-        # version counted them (not known for the whole batch)
+        # only band cells: those its rungs walked on this data, as the plain
+        # version counted them, or for the batch, whose plain version ran on
+        # two pairs, those of the rung that certifies each verified distance
         cells = float((ql[qi] * cl[cj]).sum())
-        work = float(plain[:, 3].sum()) if band else cells
+        if name == "band batch":
+            work = float(sum(_certifying_rung_cells(int(ql[i]), int(cl[j]), int(d))
+                             for i, j, d in zip(qi, cj, flat.tolist())))
+        else:
+            work = float(plain[:, 3].sum()) if band else cells
         nbytes = 4.0 * (ql[qi].sum() + cl[cj].sum()) + (32.0 if band else 4.0) * len(qi)
         engine_runs = 3
         t0 = time.perf_counter()
@@ -1348,16 +1425,16 @@ def _wavefront_main_path(dev, sync, report):
         engine_s = (time.perf_counter() - t0) / engine_runs
         kernel_ms = _time_ms(call, 5, sync)
         _profile(name, lambda: engine(qs, cs), sync, kernel_ms)
-        if name == "band batch":
-            bound = "bound not computed (band cells known only on the pairs the plain version ran)"
-        else:
-            bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * work, nbytes)
-            bound = f"bound {bound_ms:.4f} ms ({bound_by})"
+        bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * work, nbytes)
+        unfused_ms = _bound(_dp_ops_per_cell_unfused(cfg) * work, nbytes)[0]
+        bound = (f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.2f}% of "
+                 f"it; with the unfused count {unfused_ms:.4f} ms, "
+                 f"{100 * unfused_ms / kernel_ms:.2f}%")
+        if name != "band batch":
             report[kernel] = dict(
                 launches=launches[kernel], ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, max_abs_err=err)
-        print(f"[perf] {name} cells={cells:.0f}"
-              + (f" kernel-cells={work:.0f}" if name != "band batch" else "")
+        print(f"[perf] {name} cells={cells:.0f} bound-cells={work:.0f}"
               + f": {kernel} {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
               f"{cells / kernel_ms / 1e6:.3f} GCUPS; engine to device "
               f"result {device_s * 1e3:.3f} ms = {cells / device_s / 1e9:.3f} GCUPS; "
@@ -2137,24 +2214,32 @@ def _check_hash_kernels(dev, sync, max_err):
     import torch
     from stringzilla_tpu_torch.ops import hash as host_hash
     from stringzilla_tpu_torch.ops.aes_kernel import fill_random_device, fill_random_reference
-    from stringzilla_tpu_torch.ops.hash_kernel import (hash_batch_device, hash_long,
+    from stringzilla_tpu_torch.ops.hash_kernel import (KERNEL_LAUNCHES, WIDE_BYTES,
+                                                       hash_batch_device, hash_long,
                                                        hash_long_reference, hash_short,
                                                        hash_short_reference)
 
     rng = np.random.default_rng(SEED + 40)
-    err = {"hash_short": 0, "hash_long": 0, "fill_random": 0}
+    err = {"hash_short": 0, "hash_long": 0, "hash_long_wide": 0, "fill_random": 0}
     calls = dict.fromkeys(err, 0)
     seeds = (0, 42, 2**63 + 9, 2**64 - 1)
 
     def same(name, kernel, plain, tape, seed, what, host=True):
+        """``kernel`` against ``plain`` on a tape; for ``hash_long`` the
+        errors and launches go to the kernel each string was routed to."""
         blob, starts, lengths, buf, st = tape
+        before = dict(KERNEL_LAUNCHES)
         got = kernel(blob, starts, lengths, seed).cpu().numpy()
         want = plain(blob, starts, lengths, seed).cpu().numpy()
-        err[name] = max(err[name], _digests_err(got, want))
-        calls[name] += 1
+        lens = lengths.cpu().numpy()
+        parts = ({name: None} if name == "hash_short" else
+                 {"hash_long": lens < WIDE_BYTES, "hash_long_wide": lens >= WIDE_BYTES})
+        for part, mask in parts.items():
+            sel = slice(None) if mask is None else mask
+            err[part] = max(err[part], _digests_err(got[sel], want[sel]))
+            calls[part] += KERNEL_LAUNCHES[part] - before[part]
         _check(np.array_equal(got, want), f"{name} {what} seed {seed}: differs from plain")
         if host:  # the strings of this kernel's path against the host sz_hash
-            lens = lengths.cpu().numpy()
             mine = (lens <= 64) if name == "hash_short" else (lens > 64)
             for i in np.nonzero(mine)[0][::max(1, int(mine.sum()) // 300)]:
                 s = buf[st[i]: st[i] + lens[i]].tobytes()
@@ -2177,10 +2262,42 @@ def _check_hash_kernels(dev, sync, max_err):
     for seed in seeds:
         same("hash_long", hash_long, hash_long_reference,
              _on_card_tape(rng, long_lens, dev, int(seed % 3)), seed, "lengths 65-16447")
+    # hash_long_wide's ring of P = 32 chunks (csrc/hash.cu kPrefetch): the
+    # strings it takes (WIDE_BYTES on) of mP - 1, mP and mP + 1 full chunks
+    # (and 1 or 64 bytes more), among quad strings at odd offsets, then each
+    # alone in a blob that ends at its last byte and starts 0-3 bytes past a
+    # 4-byte boundary; the quad's strings just under WIDE_BYTES the same way
+    ring = 32
+    m0 = WIDE_BYTES // (64 * ring)
+    lens = [64 * f + d for m in range(m0, m0 + 4) for f in (m * ring - 1, m * ring, m * ring + 1)
+            for d in (1, 64) if 64 * f + d >= WIDE_BYTES][:12]
+    lens += [WIDE_BYTES - 1, WIDE_BYTES - 64, 65, 129]
+    for skew in range(4):
+        same("hash_long", hash_long, hash_long_reference, _on_card_tape(rng, lens, dev, skew),
+             42, f"the ring's edges, skew {skew}")
+        whole = torch.zeros(max(lens) + 4, dtype=torch.uint8, device=dev)
+        for length in lens:
+            kernel = "hash_long_wide" if length >= WIDE_BYTES else "hash_long"
+            host = rng.integers(0, 256, length, dtype=np.uint8)
+            blob = whole[skew: skew + length]
+            blob.copy_(torch.from_numpy(host))
+            whole[skew + length:] = 0xA5  # bytes past the blob's end, never read
+            args = (blob, torch.zeros(1, dtype=torch.int64, device=dev),
+                    torch.full((1,), length, dtype=torch.int64, device=dev))
+            before = KERNEL_LAUNCHES[kernel]
+            got = hash_long(*args, 5).cpu().numpy().view(np.uint64)
+            want = hash_long_reference(*args, 5).cpu().numpy().view(np.uint64)
+            calls[kernel] += KERNEL_LAUNCHES[kernel] - before
+            _check(KERNEL_LAUNCHES[kernel] == before + 1,
+                   f"a {length}-byte string did not reach {kernel}")
+            err[kernel] = max(err[kernel], abs(int(got[0]) - int(want[0])))
+            _check(got[0] == want[0] == host_hash.hash_multiseed(host.tobytes(), [5])[0],
+                   f"{kernel}: a {length}-byte string ending at its blob's last byte "
+                   f"(skew {skew}) != plain or host")
     big = _on_card_tape(rng, [3 << 20], dev, 1)
     got = hash_long(*big[:3], 7).cpu().numpy().view(np.uint64)
     want = host_hash.hash_multiseed(big[3][big[4][0]: big[4][0] + (3 << 20)].tobytes(), [7])[0]
-    err["hash_long"] = max(err["hash_long"], abs(int(got[0]) - int(want)))
+    err["hash_long_wide"] = max(err["hash_long_wide"], abs(int(got[0]) - int(want)))
     _check(int(got[0]) == int(want), "hash_long on a 3 MiB string != host sz_hash")
 
     for length in (1, 15, 16, 17, 5000, 40000, 1 << 24):
@@ -2209,8 +2326,12 @@ def _check_hash_kernels(dev, sync, max_err):
     max_err.update(err)
     print(f"[kernel] hash_short: lengths 0-64 at odd offsets, 4 seeds (carry into the high "
           f"word), {len(many)} tokens: {calls['hash_short']} launches equal the plain version")
-    print(f"[kernel] hash_long: lengths 65-300, 64k-1..64k+1, the 8/16 KiB buckets, 4 seeds: "
-          f"{calls['hash_long']} launches equal the plain version; a 3 MiB string equals the host")
+    print(f"[kernel] hash_long: lengths 65-300, 64k-1..64k+1, the 8/16 KiB buckets, 4 seeds; "
+          f"hash_long_wide's ring edges (mP - 1..mP + 1 full chunks, P = 32, from "
+          f"{WIDE_BYTES} B) and the quad's last lengths, at odd offsets and ending at the "
+          f"blob's last byte: {calls['hash_long']} launches of hash_long (a quad a string, "
+          f"under {WIDE_BYTES} B) and {calls['hash_long_wide']} of hash_long_wide equal the "
+          f"plain version; a 3 MiB string (hash_long_wide) equals the host")
     print(f"[kernel] fill_random: 7 lengths x 4 nonces (one wraps the counter): "
           f"{calls['fill_random']} buffers equal the plain version and the host; "
           f"{len(golden['hash'])} + {len(golden['fill_random'])} golden vectors exact")
@@ -2232,6 +2353,7 @@ def _hash_main_path(dev, sync, report):
 
     counters = [hash_kernel.KERNEL_LAUNCHES, aes_kernel.KERNEL_LAUNCHES]
     launches = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def raw_args(dt):
         return (dt.data, torch.from_numpy(dt.starts).to(dev), torch.from_numpy(dt.lengths).to(dev))
@@ -2343,15 +2465,20 @@ def _hash_main_path(dev, sync, report):
         print(f"[engine] Strs.hashes on {len(lines)} lines of {int(lens[:-1].min())}-"
               f"{int(lens.max())} bytes and one of {int(lens[-1])}: equal the plain version on the card and the host on {HASH_SAMPLE} samples")
         args = (mirror, starts, lengths)
-        kernel_ms = _time_ms(lambda: hash_kernel.hash_long(*args, 0), 10, sync)
+        routes = hash_kernel.kernel_routes(lens)  # as Strs.hashes reads them
+        _check(routes["quad"] and not routes["wide"], "the lines reach hash_long_wide")
+        kernel_ms = _time_ms(lambda: hash_kernel.hash_long(*args, 0, quad=True, wide=False),
+                             10, sync)
         plain_ms = _time_ms(lambda: hash_kernel.hash_long_reference(*args, 0), 1, sync)
         bound_ms, bound_by = _bound(_hash_ops(lens), _hash_bytes(lens))
         _profile(f"Strs.hashes {len(lines)} lines", lines.hashes, sync, kernel_ms)
+        threads, blocks = hash_kernel.hash_long_plan(len(lines), sms, "hash_long")
         print(f"[perf] Strs.hashes {len(lines)} lines ({len(f) >> 20} MiB): splitlines "
               f"{split_ms:.3f} ms; first call with the mirror's H2D {first_ms:.3f} ms; again "
-              f"{again_ms:.3f} ms; hash_long kernel {kernel_ms:.4f} ms = "
+              f"{again_ms:.3f} ms; hash_long kernel (a quad a string, {blocks} CTAs of "
+              f"{threads}) {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
               f"{len(f) / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of it")
         report["hash_long"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=None, max_abs_err=err)
         del lines, starts, lengths, args, short, plain
@@ -2395,7 +2522,7 @@ def _hash_main_path(dev, sync, report):
     docs = [docs_blob[i * size: (i + 1) * size] for i in range(count)]
     docs.append(drng.integers(0, 256, DOC_BIG, dtype=np.uint8).tobytes())
     t0 = time.perf_counter()
-    got = _launched("documents", counters, ["hash_long"],
+    got = _launched("documents", counters, ["hash_long_wide"],
                     lambda: hash_kernel.hash_batch_device(docs), launches)
     call_ms = (time.perf_counter() - t0) * 1e3
     for i in (0, 1, count // 2, count - 1, count):
@@ -2403,15 +2530,32 @@ def _hash_main_path(dev, sync, report):
                f"hash_batch_device document {i} ({len(docs[i])} B) != host sz_hash")
     dt = device_tape(Tape.from_strings(docs), dev)
     args = raw_args(dt)
-    docs_ms = _time_ms(lambda: hash_kernel.hash_long(*args, 0), 3, sync)
+    _check(hash_kernel.kernel_routes(dt.lengths) == {"short": False, "quad": False,
+                                                      "wide": True},
+           "a document does not reach hash_long_wide")
+    docs_ms = _time_ms(lambda: hash_kernel.hash_long(*args, 0, quad=False, wide=True), 3, sync)
+    # the plain version steps the 3 MiB string's 49,152 chunks one launch
+    # group at a time (~50 s): one call, on the host clock
+    t0 = time.perf_counter()
+    plain = hash_kernel.hash_long_reference(*args, 0)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _digests_err(hash_kernel.hash_long(*args, 0).cpu().numpy(), plain.cpu().numpy())
+    _check(err == 0, "hash_long on the documents != the plain version on the card")
     bound_ms, bound_by = _bound(_hash_ops(dt.lengths), _hash_bytes(dt.lengths))
+    threads, blocks = hash_kernel.hash_long_plan(len(dt.lengths), sms, "hash_long_wide")
+    chunks = (DOC_BIG - 1) // 64 + 1  # the full ones and the deferred one, a chain each lane
     print(f"[engine] hash_batch_device on {count} x {size} B documents and one {DOC_BIG >> 20} "
-          f"MiB string: 5 samples equal the host sz_hash")
-    print(f"[perf] documents: hash_batch_device call {call_ms:.3f} ms; hash_long kernel "
-          f"{docs_ms:.4f} ms = {dt.lengths.sum() / docs_ms / 1e6:.3f} GB/s; bound {bound_ms:.4f} "
-          f"ms ({bound_by}); the {DOC_BIG >> 20} MiB string's quad walks "
-          f"{(DOC_BIG - 1) // 64} chunks alone")
-    del docs, docs_blob, dt, args
+          f"MiB string: 5 samples equal the host sz_hash, all the plain version")
+    print(f"[perf] documents: hash_batch_device call {call_ms:.3f} ms; hash_long_wide kernel "
+          f"(a warp a string, {blocks} CTAs of {threads}) {docs_ms:.4f} ms "
+          f"[{docs_ms.lo:.4f}-{docs_ms.hi:.4f}] = {dt.lengths.sum() / docs_ms / 1e6:.3f} GB/s; "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / docs_ms:.2f}% of it; the "
+          f"{DOC_BIG >> 20} MiB string's chain of {chunks} chunks at "
+          f"{docs_ms * 1e3 / chunks:.4f} us a chunk; plain {plain_ms:.3f} ms")
+    report["hash_long_wide"] = dict(ms=docs_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=None, max_abs_err=err)
+    del docs, docs_blob, dt, args, plain
 
     # -- fill_random: bench_fill_random --------------------------------------
     out = _launched("fill_random", counters, ["fill_random"],
@@ -2470,7 +2614,7 @@ def _hash_main_path(dev, sync, report):
           f"argsort_strings(prefer_device=True) {device_ms:.3f} ms, of which the stable "
           f"torch.sort passes over {keys.shape[1]} key columns with the pull {passes_ms:.3f} ms")
 
-    for k in ("hash_short", "hash_long", "fill_random"):
+    for k in ("hash_short", "hash_long", "hash_long_wide", "fill_random"):
         report[k]["launches"] = launches[k]
     print(f"[engine] launches on the hashing main path: {launches}")
 
@@ -2654,6 +2798,7 @@ def _mim_main_path(dev, sync, report):
     """Phase 4g: ``wavefront_score_mim`` with no ``device=`` at full width."""
     import torch
     from stringzilla_tpu_torch.ops import wavefront as wf_mod
+    from stringzilla_tpu_torch.ops.similarity import LinearGaps, SimilarityConfig, UniformCosts
     from stringzilla_tpu_torch.ops.wavefront import (BAND_KMAX, levenshtein_long_pair,
                                                      stage_batch, stage_reference,
                                                      wavefront_batch, wavefront_score,
@@ -2712,13 +2857,18 @@ def _mim_main_path(dev, sync, report):
                            batches=3)
         host_ms = _host_ms(lambda: wavefront_score_mim(a, b), sync, runs=2)
         steps = max(d_star, m + n - d_star)
-        bound_ms, bound_by = _bound(5.0 * m * n, 4.0 * (m + n) + 16.0 * (m + 1))
+        unit = SimilarityConfig("min", "global", LinearGaps(1), UniformCosts(0, 1))
+        bound_ms, bound_by = _bound(_dp_ops_per_cell(unit) * m * n,
+                                    4.0 * (m + n) + 16.0 * (m + 1))
+        unfused_ms = _bound(_dp_ops_per_cell_unfused(unit) * m * n,
+                            4.0 * (m + n) + 16.0 * (m + 1))[0]
         print(f"[perf] wavefront_score_mim {m} x {n}: call {host_ms:.3f} ms; wavefront_stage "
               f"{kernel_ms:.4f} ms (batches {kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}) for both "
               f"sweeps' 4 launches = {m * n / kernel_ms / 1e6:.3f} GCUPS, "
               f"{kernel_ms / steps * 1e3:.4f} us a step of {steps}; wavefront_flat on the same "
               f"pair {flat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / kernel_ms:.1f}% of the kernel's time"
+              f"{100 * bound_ms / kernel_ms:.1f}% of the kernel's time; with the unfused "
+              f"count {unfused_ms:.4f} ms, {100 * unfused_ms / kernel_ms:.1f}%"
               + (f"; plain {plain_ms:.3f} ms" if k == 0 else ""))
         print(f"[perf] wavefront_stage {m} x {n}, timed as PR 8 timed its first design "
               f"(stage_batch, the host waiting on each of the 4 stages): {waited_ms:.4f} ms "
@@ -2772,6 +2922,8 @@ def run(dev) -> list:
         "myers_tier_b": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
         "similarity_dp": ("stringzilla_tpu/ops/similarity_pallas.py:78",
                           "csrc/similarity.cu"),
+        "similarity_dp_warp": ("stringzilla_tpu/ops/similarity_pallas.py:78",
+                               "csrc/similarity.cu"),
         "byte_lut": ("stringzilla_tpu/ops/memory_pallas.py:34", "csrc/lut.cu"),
         "wavefront_flat": ("stringzilla_tpu/ops/wavefront_pallas.py:60",
                            "csrc/wavefront.cu"),
@@ -2785,6 +2937,7 @@ def run(dev) -> list:
         "utf8_validate_count": ("stringzilla_tpu/ops/utf8_device.py:68", "csrc/utf8.cu"),
         "hash_short": ("stringzilla_tpu/ops/hash_pallas.py:119", "csrc/hash.cu"),
         "hash_long": ("stringzilla_tpu/ops/hash_pallas.py:224", "csrc/hash.cu"),
+        "hash_long_wide": ("stringzilla_tpu/ops/hash_pallas.py:224", "csrc/hash.cu"),
         "fill_random": ("stringzilla_tpu/ops/aes_pallas.py:117", "csrc/hash.cu"),
         "wavefront_stage": ("stringzilla_tpu/ops/wavefront_pallas.py:243",
                             "csrc/wavefront_stage.cu"),

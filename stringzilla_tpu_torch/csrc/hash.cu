@@ -31,16 +31,35 @@
 //     moved (its bytes, its start and length, its digest): operations.
 //   hash_long: four threads (a quad) a string, thread l owning lane l of the
 //     512-bit state. ~4.25 operations a byte absorbed against the byte itself:
-//     bytes, narrowly, for long strings.
+//     bytes, narrowly, for many long strings. A single long string is bound
+//     by neither: each lane's AES state is a serial chain by the hash's
+//     definition, one dependent AESENC a 64-byte chunk, so its floor is that
+//     chain's latency and the instructions one warp issues for it.
 //   fill_random: a thread a 16-byte block, one AESENC (48 operations) and a
 //     16-byte store: bytes.
 // What the design does about it: the tables sit in shared memory (bank
-// conflicts of the random indices stay; later work), every kernel strides
-// over its strings or blocks with a grid of 8 CTAs an SM so the tables are
-// built once per CTA, and loads are aligned 4-byte words joined with
-// __funnelshift_r (never a byte past the blob). hash_long's quad loads its
-// next 16-byte block before it absorbs the current one, so a long string's
-// chain of rounds does not wait on memory at every step.
+// conflicts of the random indices stay; later work), hash_short and
+// fill_random stride over their strings or blocks with a grid of 8 CTAs an
+// SM so the tables are built once per CTA, and loads are aligned 4-byte
+// words joined with __funnelshift_r (never a byte past the blob). The long
+// path has two kernels, and each string goes to one of them by its own
+// length (ops/hash_kernel.py WIDE_BYTES, passed in as wide_min); the host's
+// plan (hash_long_plan) sizes each launch's CTAs so that few strings spread
+// over every SM:
+//   hash_long, a quad a string, for strings shorter than wide_min (a log's
+//     lines): a lane's interior chunks, whose words all lie in the blob,
+//     are read with no bounds logic, one chunk ahead; the rest through
+//     load_block.
+//   hash_long_wide, a warp a string (16 of its threads), for the others:
+//     thread t holds word t % 4 of lane t / 4's state, so an AESENC column
+//     is three shuffles, four table loads and two xors (in a quad, one
+//     thread issued all sixteen loads and their extracts: ~100 instructions
+//     a chunk in one instruction stream), and each thread keeps the two
+//     words of kPrefetch = 32 interior chunks in flight in a register ring.
+//   On chip_smoke.py's documents (a 3 MiB string's chain of 49,152 chunks)
+//   a quad with one chunk ahead and the bounds logic at every chunk took
+//   0.596 us a chunk, a warp with 32 chunks ahead 0.089 (NVIDIA H100 80GB
+//   HBM3 at 700 W; tools/dp_hash_sweep.py times both kernels by length).
 //
 // Digests are written as int64 (the u64 bits): torch on CUDA lacks most
 // uint64 operations.
@@ -210,16 +229,56 @@ __device__ __forceinline__ uint64_t hash_short_one(const uint8_t* blob, long lon
 // chunk, (length - 1) / 64 of them, then block l of the deferred, zero-padded
 // last chunk (1-64 bytes: a length that is a multiple of 64 defers a full
 // chunk), and returns the lane's mixed block aesenc(sum, aes).
+//
+// The interior chunks, [lo, hi): full blocks whose aligned words all lie in
+// the blob (load_block's word path with count 16), are read with no bounds
+// logic, chunk k + 1's words loaded as chunk k is absorbed. The chunks
+// before lo (at most one, when the lane's first word starts before the
+// blob) and from hi on go through load_block, one chunk ahead.
 __device__ __forceinline__ Block hash_long_lane(const uint8_t* blob, long long n, long long start,
                                                 long long length, uint64_t seed, int l,
                                                 Tables T) {
   Block aes = from_u64(seed ^ kPi[2 * l], seed ^ kPi[2 * l + 1]);
   Block sum = from_u64(seed ^ kPi[8 + 2 * l], seed ^ kPi[9 + 2 * l]);
-  const long long full = (length - 1) / 64;
+  const long long chunks = (length - 1) / 64 + 1;  // the full ones and the deferred one
   const long long end = start + length;
-  long long at = start + 16 * l;
+  const long long first = start + 16 * l;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(blob + first);
+  const unsigned int* w0 = reinterpret_cast<const unsigned int*>(addr & ~static_cast<uintptr_t>(3));
+  const int shift = static_cast<int>(addr & 3);
+  const int words = shift ? 5 : 4;
+  const long long lo = reinterpret_cast<const uint8_t*>(w0) >= blob ? 0 : 1;
+  const long long room = (blob + n) - reinterpret_cast<const uint8_t*>(w0) - 4 * words;
+  long long hi = room < 0 ? 0 : room / 64 + 1;  // chunks whose words end inside the blob
+  if (hi > chunks - 1) hi = chunks - 1;
+  long long k = 0;
+  if (hi > lo) {
+    for (; k < lo; ++k) {
+      const Block data = load_block(blob, n, first + 64 * k, 16);
+      aes = aesenc(aes, data, T);
+      sum = sum_update(sum, data);
+    }
+    uint32_t r[5];  // chunk k's words
+#pragma unroll
+    for (int i = 0; i < 5; ++i) r[i] = i < words ? __ldg(w0 + 16 * lo + i) : 0u;
+    Block data;
+    for (const unsigned int* w = w0 + 16 * (lo + 1); k + 2 <= hi; ++k, w += 16) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) data.w[i] = __funnelshift_r(r[i], r[i + 1], 8 * shift);
+#pragma unroll
+      for (int i = 0; i < 5; ++i) r[i] = i < words ? __ldg(w + i) : 0u;
+      aes = aesenc(aes, data, T);
+      sum = sum_update(sum, data);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) data.w[i] = __funnelshift_r(r[i], r[i + 1], 8 * shift);
+    aes = aesenc(aes, data, T);  // chunk hi - 1
+    sum = sum_update(sum, data);
+    ++k;
+  }
+  long long at = first + 64 * k;
   Block next = load_block(blob, n, at, clamp16(end - at));
-  for (long long k = 0; k < full; ++k) {
+  for (; k < chunks - 1; ++k) {
     const Block data = next;
     at += 64;
     next = load_block(blob, n, at, clamp16(end - at));
@@ -276,7 +335,7 @@ hash_short(const uint8_t* __restrict__ blob, long long n, const long long* __res
 __global__ void __launch_bounds__(kThreads)
 hash_long(const uint8_t* __restrict__ blob, long long n, const long long* __restrict__ starts,
           const long long* __restrict__ lengths, long long count, uint64_t seed,
-          long long* __restrict__ out) {
+          long long wide_min, long long* __restrict__ out) {
   __shared__ uint32_t T[4][256];
   build_tables(T);
   const int l = threadIdx.x & 3;
@@ -287,7 +346,7 @@ hash_long(const uint8_t* __restrict__ blob, long long n, const long long* __rest
   for (long long base = warp * 8; base < count; base += warps * 8) {
     const long long i = base + quad_in_warp;
     const long long length = i < count ? lengths[i] : 0;
-    const bool active = length > 64;
+    const bool active = length > 64 && length < wide_min;
     Block m{{0, 0, 0, 0}};
     if (active) m = hash_long_lane(blob, n, starts[i], length, seed, l, T);
     Block m1, m2, m3;
@@ -299,6 +358,134 @@ hash_long(const uint8_t* __restrict__ blob, long long n, const long long* __rest
     }
     if (active && l == 0)
       out[i] = static_cast<long long>(hash_long_collapse(m, m1, m2, m3, seed, length, T));
+  }
+}
+
+// A long string a warp, its state split over 16 threads: thread t holds
+// word c = t % 4 of lane l = t / 4's AES state (the sum lane whole, as all
+// four threads of a lane compute it alike). An AESENC column needs one byte
+// of each of the lane's four words, so each round takes three shuffles and
+// four table loads a thread, instead of sixteen loads and their extracts
+// in one thread: the chain is a shuffle, a load and two xors.
+__device__ __forceinline__ uint32_t aes_column(uint32_t s0, uint32_t s1, uint32_t s2, uint32_t s3,
+                                               uint32_t key, Tables T) {
+  return T[0][s0 & 0xFFu] ^ T[1][(s1 >> 8) & 0xFFu] ^ T[2][(s2 >> 16) & 0xFFu] ^
+         T[3][s3 >> 24] ^ key;
+}
+
+constexpr unsigned kHalf = 0xFFFFu;  // the 16 threads of a warp that hold a string
+
+// Lane l's four state words, gathered from its four threads.
+__device__ __forceinline__ Block gather_lane(uint32_t word, int l) {
+  Block b;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b.w[j] = __shfl_sync(kHalf, word, 4 * l + j, 16);
+  return b;
+}
+
+// Column c of AESENC(lane l's state, key): the state's words c + 1..c + 3
+// (mod 4) from the lane's other threads.
+__device__ __forceinline__ uint32_t next_column(uint32_t word, uint32_t key, int l, int c,
+                                                Tables T) {
+  const uint32_t s1 = __shfl_sync(kHalf, word, 4 * l + ((c + 1) & 3), 16);
+  const uint32_t s2 = __shfl_sync(kHalf, word, 4 * l + ((c + 2) & 3), 16);
+  const uint32_t s3 = __shfl_sync(kHalf, word, 4 * l + ((c + 3) & 3), 16);
+  return aes_column(word, s1, s2, s3, key, T);
+}
+
+// A chunk of lane l at `at` through load_block, its whole state in every
+// thread of the lane (the chunks outside the interior).
+__device__ __forceinline__ void absorb_block(const uint8_t* blob, long long n, long long at,
+                                             long long end, int l, int c, uint32_t& aes,
+                                             Block& sum, Tables T) {
+  const Block data = load_block(blob, n, at, clamp16(end - at));
+  aes = aesenc(gather_lane(aes, l), data, T).w[c];
+  sum = sum_update(sum, data);
+}
+
+constexpr int kPrefetch = 32;  // interior chunks a thread of hash_long_wide keeps in flight
+
+__device__ __forceinline__ Block hash_long_lane_wide(const uint8_t* blob, long long n,
+                                                     long long start, long long length,
+                                                     uint64_t seed, int l, int c, Tables T) {
+  uint32_t aes = from_u64(seed ^ kPi[2 * l], seed ^ kPi[2 * l + 1]).w[c];
+  Block sum = from_u64(seed ^ kPi[8 + 2 * l], seed ^ kPi[9 + 2 * l]);
+  const long long chunks = (length - 1) / 64 + 1;
+  const long long end = start + length;
+  const long long first = start + 16 * l;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(blob + first);
+  const unsigned int* w0 = reinterpret_cast<const unsigned int*>(addr & ~static_cast<uintptr_t>(3));
+  const int shift = static_cast<int>(addr & 3);
+  const int words = shift ? 5 : 4;
+  // The interior chunks of every lane: [lo, hi), the same for all 16 threads.
+  long long lo = reinterpret_cast<const uint8_t*>(w0) >= blob ? 0 : 1;
+  const long long room = (blob + n) - reinterpret_cast<const uint8_t*>(w0) - 4 * words;
+  long long hi = room < 0 ? 0 : room / 64 + 1;
+  if (hi > chunks - 1) hi = chunks - 1;
+#pragma unroll
+  for (int off = 4; off < 16; off *= 2) {
+    lo = max(lo, static_cast<long long>(__shfl_xor_sync(kHalf, lo, off, 16)));
+    hi = min(hi, static_cast<long long>(__shfl_xor_sync(kHalf, hi, off, 16)));
+  }
+  long long k = 0;
+  if (hi - lo >= kPrefetch) {
+    for (; k < lo; ++k) absorb_block(blob, n, first + 64 * k, end, l, c, aes, sum, T);
+    // Thread c's word of chunk k is funnel-shifted from words c and c + 1.
+    const unsigned int* wc = w0 + c;
+    uint32_t ring[kPrefetch][2];
+#pragma unroll
+    for (int r = 0; r < kPrefetch; ++r) {
+      ring[r][0] = __ldg(wc + 16 * (lo + r));
+      ring[r][1] = c + 1 < words ? __ldg(wc + 16 * (lo + r) + 1) : 0u;
+    }
+    const unsigned int* w = wc + 16 * (lo + kPrefetch);
+    for (; k + 2 * kPrefetch <= hi; k += kPrefetch, w += 16 * kPrefetch) {
+#pragma unroll
+      for (int r = 0; r < kPrefetch; ++r) {
+        const uint32_t d = __funnelshift_r(ring[r][0], ring[r][1], 8 * shift);
+        ring[r][0] = __ldg(w + 16 * r);
+        ring[r][1] = c + 1 < words ? __ldg(w + 16 * r + 1) : 0u;
+        const Block data = gather_lane(d, l);
+        aes = next_column(aes, d, l, c, T);
+        sum = sum_update(sum, data);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kPrefetch; ++r) {
+      const uint32_t d = __funnelshift_r(ring[r][0], ring[r][1], 8 * shift);
+      const Block data = gather_lane(d, l);
+      aes = next_column(aes, d, l, c, T);
+      sum = sum_update(sum, data);
+    }
+    k += kPrefetch;
+  }
+  for (; k < chunks; ++k) absorb_block(blob, n, first + 64 * k, end, l, c, aes, sum, T);
+  return aesenc(sum, gather_lane(aes, l), T);
+}
+
+__global__ void __launch_bounds__(kThreads)
+hash_long_wide(const uint8_t* __restrict__ blob, long long n, const long long* __restrict__ starts,
+               const long long* __restrict__ lengths, long long count, uint64_t seed,
+               long long wide_min, long long* __restrict__ out) {
+  __shared__ uint32_t T[4][256];
+  build_tables(T);
+  const int t = threadIdx.x & 31;
+  if (t >= 16) return;
+  const int l = t >> 2, c = t & 3;
+  const long long warps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+       i < count; i += warps) {
+    const long long length = lengths[i];
+    if (length <= 64 || length < wide_min) continue;
+    const Block m = hash_long_lane_wide(blob, n, starts[i], length, seed, l, c, T);
+    Block ms[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) ms[j].w[w] = __shfl_sync(kHalf, m.w[w], 4 * j, 16);
+    if (t == 0)
+      out[i] = static_cast<long long>(
+          hash_long_collapse(ms[0], ms[1], ms[2], ms[3], seed, length, T));
   }
 }
 
@@ -338,16 +525,34 @@ extern "C" cudaError_t sz_hash_short(const uint8_t* blob, long long n, const lon
   return cudaGetLastError();
 }
 
-// sz_hash of every string of more than 64 bytes into out[i], four threads a
-// string; entries of shorter strings are left as they are. Arguments as
-// sz_hash_short's.
+// sz_hash of every string of more than 64 and fewer than wide_min bytes
+// into out[i] (hash_long, a quad a string); entries of other strings are
+// left as they are. Arguments as sz_hash_short's, but the launch is the
+// host's plan (ops/hash_kernel.py hash_long_plan): `blocks` CTAs of
+// `threads` threads (a multiple of 32, at most 256).
 extern "C" cudaError_t sz_hash_long(const uint8_t* blob, long long n, const long long* starts,
                                     const long long* lengths, long long count,
-                                    unsigned long long seed, long long* out, int sm_count,
-                                    cudaStream_t stream) {
+                                    unsigned long long seed, long long wide_min, long long* out,
+                                    int threads, int blocks, cudaStream_t stream) {
   if (count <= 0) return cudaSuccess;
-  hash_long<<<grid_for(4 * count, sm_count), kThreads, 0, stream>>>(blob, n, starts, lengths,
-                                                                    count, seed, out);
+  if (threads < 32 || threads > kThreads || threads % 32 != 0 || blocks < 1)
+    return cudaErrorInvalidConfiguration;
+  hash_long<<<blocks, threads, 0, stream>>>(blob, n, starts, lengths, count, seed, wide_min, out);
+  return cudaGetLastError();
+}
+
+// The same for the strings of more than 64 and at least wide_min bytes
+// (hash_long_wide, a warp a string).
+extern "C" cudaError_t sz_hash_long_wide(const uint8_t* blob, long long n,
+                                         const long long* starts, const long long* lengths,
+                                         long long count, unsigned long long seed,
+                                         long long wide_min, long long* out, int threads,
+                                         int blocks, cudaStream_t stream) {
+  if (count <= 0) return cudaSuccess;
+  if (threads < 32 || threads > kThreads || threads % 32 != 0 || blocks < 1)
+    return cudaErrorInvalidConfiguration;
+  hash_long_wide<<<blocks, threads, 0, stream>>>(blob, n, starts, lengths, count, seed, wide_min,
+                                                 out);
   return cudaGetLastError();
 }
 

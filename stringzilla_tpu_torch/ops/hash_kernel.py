@@ -15,16 +15,17 @@ Counterpart of ``stringzilla_tpu/ops/hash_pallas.py``:
   device (torch on CUDA lacks most ``uint64`` operations), ``uint64``
   numpy arrays on the host.
 
-Strings of at most 64 bytes run ``hash_short``, longer ones ``hash_long``:
-the hand-written Hopper kernels of ``csrc/hash.cu`` on CUDA tensors, the
-plain PyTorch versions ``hash_short_reference`` and ``hash_long_reference``
-on CPU tensors. Each kernel writes the digests of its own strings and
-leaves the others' entries as they are.
+Strings of at most 64 bytes run ``hash_short``, longer ones ``hash_long``
+(a quad a string, or a warp a string from ``WIDE_BYTES`` on, each string
+by its own length): the hand-written Hopper kernels of ``csrc/hash.cu`` on
+CUDA tensors, the plain PyTorch versions ``hash_short_reference`` and
+``hash_long_reference`` on CPU tensors. Each kernel writes the digests of
+its own strings and leaves the others' entries as they are.
 
 The JAX module buckets strings by block count (short) or dyadic chunk
 count (long) and packs each bucket into byte planes, because each bucket
-is a compiled shape; here a thread (short) or four (long) read each string
-straight from the blob at its own offset, so nothing is bucketed or
+is a compiled shape; here a thread (short), four or a warp (long) read each
+string straight from the blob at its own offset, so nothing is bucketed or
 padded. The JAX module hashes strings over 2 MiB on the host (a VMEM
 limit); the card has no such limit, and every length runs on the device.
 """
@@ -42,10 +43,11 @@ from .tape import Tape
 
 __all__ = ["hash_tokens_raw", "hash_batch_device", "hash_bounds_device", "hash_long_device",
            "hash_short", "hash_long", "hash_short_reference", "hash_long_reference",
-           "KERNEL_LAUNCHES", "SHORT_MAX"]
+           "hash_long_plan", "kernel_routes", "KERNEL_LAUNCHES", "SHORT_MAX", "WIDE_BYTES"]
 
-# Launches of the CUDA kernels, counted where the wrappers launch them.
-KERNEL_LAUNCHES = {"hash_short": 0, "hash_long": 0}
+# Launches of the CUDA kernels, counted where the wrappers launch them
+# (hash_long launches hash_long, hash_long_wide or both).
+KERNEL_LAUNCHES = {"hash_short": 0, "hash_long": 0, "hash_long_wide": 0}
 
 SHORT_MAX = 64  # the longest string of the short path (hash/serial.h:506)
 _U32 = 0xFFFFFFFF
@@ -174,7 +176,39 @@ def hash_long_reference(blob, starts, lengths, seed: int = 0, out=None) -> torch
 
 # -- kernels -----------------------------------------------------------------
 
-def _launch(kernel: str, symbol: str, blob, starts, lengths, seed, out):
+# CTAs of the long path: a multiple of 32 threads up to 256, at most 8 an SM.
+_MAX_THREADS = 256
+_BLOCKS_PER_SM = 8
+_LONG_THREADS = {"hash_long": 4, "hash_long_wide": 32}  # threads a string
+# Bytes from which a string goes to hash_long_wide (a warp a string, 32
+# chunks of loads in flight) rather than hash_long (a quad a string, one
+# chunk ahead); each string by its own length. tools/dp_hash_sweep.py timed
+# both on strings of one length (NVIDIA H100 80GB HBM3, 700 W): on 64 MiB
+# batches, which fill the card, the quad was faster up to 8 KiB (1.9-7x)
+# and the two within 10% at 16 KiB; at 64 KiB the warp kernel was 3.5x
+# faster. On batches of 1,056 strings the warp kernel won from 2 KiB, by
+# tens of microseconds.
+WIDE_BYTES = 16384
+
+
+def hash_long_plan(count: int, sms: int, kernel: str) -> tuple[int, int]:
+    """``(threads, blocks)`` of a launch of ``kernel`` (``"hash_long"``, a
+    quad a string, or ``"hash_long_wide"``, a warp a string) over ``count``
+    strings on ``sms`` SMs: CTAs of the fewest threads (a warp's multiple,
+    32-256) that still put every string on the card in at most one CTA an
+    SM when strings are few, so a few long strings spread over every SM; at
+    most 8 CTAs an SM, striding over the rest. Pure arithmetic on the
+    shapes; raises on what it cannot place."""
+    if kernel not in _LONG_THREADS or count < 1 or sms < 1:
+        raise ValueError(f"no {kernel} plan for {count} strings on {sms} SMs")
+    threads_needed = _LONG_THREADS[kernel] * count
+    per_sm = -(-threads_needed // sms)  # threads an SM when every SM takes one CTA
+    threads = min(_MAX_THREADS, max(32, -(-per_sm // 32) * 32))
+    blocks = min(-(-threads_needed // threads), sms * _BLOCKS_PER_SM)
+    return threads, blocks
+
+
+def _launch(kernel: str, blob, starts, lengths, seed, out):
     dev = blob.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA or CPU tensors, not {dev}")
@@ -183,12 +217,17 @@ def _launch(kernel: str, symbol: str, blob, starts, lengths, seed, out):
         return out
     starts, lengths = starts.contiguous(), lengths.contiguous()
     lib = cuda_build.load()
+    symbol = "sz_" + kernel
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        err = getattr(lib, symbol)(blob.data_ptr(), blob.numel(), starts.data_ptr(),
-                                   lengths.data_ptr(), n, int(seed) & _U64, out.data_ptr(),
-                                   sms, stream)
+        args = (blob.data_ptr(), blob.numel(), starts.data_ptr(), lengths.data_ptr(), n,
+                int(seed) & _U64)
+        if kernel == "hash_short":
+            err = lib.sz_hash_short(*args, out.data_ptr(), sms, stream)
+        else:
+            err = getattr(lib, symbol)(*args, WIDE_BYTES, out.data_ptr(),
+                                       *hash_long_plan(n, sms, kernel), stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.sz_cuda_error_string(err).decode()} ({err})")
@@ -203,23 +242,47 @@ def hash_short(blob, starts, lengths, seed: int = 0, out=None) -> torch.Tensor:
     out = _check(blob, starts, lengths, out)
     if blob.device.type == "cpu":
         return hash_short_reference(blob, starts, lengths, seed, out)
-    return _launch("hash_short", "sz_hash_short", blob, starts, lengths, seed, out)
+    return _launch("hash_short", blob, starts, lengths, seed, out)
 
 
-def hash_long(blob, starts, lengths, seed: int = 0, out=None) -> torch.Tensor:
+def hash_long(blob, starts, lengths, seed: int = 0, out=None, *, quad: bool | None = None,
+              wide: bool | None = None) -> torch.Tensor:
     """Digests of the strings of more than 64 bytes into ``out``, as
-    ``hash_short`` does for the short ones."""
+    ``hash_short`` does for the short ones: on CUDA tensors ``hash_long``
+    hashes those under ``WIDE_BYTES`` and ``hash_long_wide`` the others. A
+    caller that knows whether any string falls in each range (from lengths
+    it holds on the host) passes ``quad`` and ``wide``, and a kernel with no
+    string is not launched; when None, that is read from ``lengths`` on the
+    device (one small transfer)."""
     out = _check(blob, starts, lengths, out)
     if blob.device.type == "cpu":
         return hash_long_reference(blob, starts, lengths, seed, out)
-    return _launch("hash_long", "sz_hash_long", blob, starts, lengths, seed, out)
+    if quad is None or wide is None:
+        found = torch.stack([((lengths > SHORT_MAX) & (lengths < WIDE_BYTES)).any(),
+                             (lengths >= WIDE_BYTES).any()]).tolist()
+        quad = found[0] if quad is None else quad
+        wide = found[1] if wide is None else wide
+    if quad:
+        _launch("hash_long", blob, starts, lengths, seed, out)
+    if wide:
+        _launch("hash_long_wide", blob, starts, lengths, seed, out)
+    return out
+
+
+def kernel_routes(lengths: np.ndarray) -> dict:
+    """Which kernels the strings of these host lengths reach: ``short``
+    (``hash_short``), and ``quad`` and ``wide``, ``hash_long``'s arguments."""
+    n_short = np.count_nonzero(lengths <= SHORT_MAX)
+    n_wide = np.count_nonzero(lengths >= WIDE_BYTES)
+    return {"short": n_short > 0, "quad": len(lengths) > n_short + n_wide, "wide": n_wide > 0}
 
 
 def hash_tokens_raw(blob, starts, lengths, seed: int = 0, *, short: bool = True,
                     long: bool = True) -> torch.Tensor:
-    """Digest bits of every string, an int64 tensor on ``blob``'s device, with
-    no transfer to the host. A caller that knows no string is short (or
-    long) passes ``short=False`` (``long=False``) to skip that kernel."""
+    """Digest bits of every string, an int64 tensor on ``blob``'s device. A
+    caller that knows no string is short (or long) passes ``short=False``
+    (``long=False``) to skip that path; ``hash_long`` reads which of its
+    kernels to launch from ``lengths`` on the device."""
     out = _check(blob, starts, lengths, None)
     if short:
         hash_short(blob, starts, lengths, seed, out)
@@ -229,14 +292,18 @@ def hash_tokens_raw(blob, starts, lengths, seed: int = 0, *, short: bool = True,
 
 
 def _hash_tape(dt: DeviceTape, seed: int) -> np.ndarray:
-    """``uint64`` digests of every string of a device tape, pulled once."""
+    """``uint64`` digests of every string of a device tape, pulled once; the
+    kernels to launch are read from the tape's host lengths."""
     if len(dt) == 0:
         return np.zeros(0, dtype=np.uint64)
     starts = torch.from_numpy(dt.starts).to(dt.device)
     lengths = torch.from_numpy(dt.lengths).to(dt.device)
-    out = hash_tokens_raw(dt.data, starts, lengths, seed,
-                          short=bool((dt.lengths <= SHORT_MAX).any()),
-                          long=bool((dt.lengths > SHORT_MAX).any()))
+    out = _check(dt.data, starts, lengths, None)
+    routes = kernel_routes(dt.lengths)
+    if routes["short"]:
+        hash_short(dt.data, starts, lengths, seed, out)
+    if routes["quad"] or routes["wide"]:
+        hash_long(dt.data, starts, lengths, seed, out, quad=routes["quad"], wide=routes["wide"])
     return out.cpu().numpy().view(np.uint64)
 
 

@@ -102,7 +102,7 @@ def load() -> ctypes.CDLL:
             lib.sz_myers.restype = i
             lib.sz_myers_runes.argtypes = [p, p, p, i, p, i, p, p, i, i, p, p]
             lib.sz_myers_runes.restype = i
-            lib.sz_similarity.argtypes = [i] * 8 + [p, i, p, i, p, p] + [i] * 6 + [p, p, p, p]
+            lib.sz_similarity.argtypes = [i] * 9 + [p, i, p, i, p, p] + [i] * 6 + [p, p, p, p]
             lib.sz_similarity.restype = i
             lib.sz_lookup.argtypes = [p, ctypes.c_size_t, p, p, i, p]
             lib.sz_lookup.restype = i
@@ -126,8 +126,10 @@ def load() -> ctypes.CDLL:
             lib.sz_utf8_validate_count.argtypes = [p, ll, p, i, p]
             lib.sz_utf8_validate_count.restype = i
             u64 = ctypes.c_ulonglong
-            for name in ("sz_hash_short", "sz_hash_long"):
-                getattr(lib, name).argtypes = [p, ll, p, p, ll, u64, p, i, p]
+            lib.sz_hash_short.argtypes = [p, ll, p, p, ll, u64, p, i, p]
+            lib.sz_hash_short.restype = i
+            for name in ("sz_hash_long", "sz_hash_long_wide"):
+                getattr(lib, name).argtypes = [p, ll, p, p, ll, u64, ll, p, i, i, p]
                 getattr(lib, name).restype = i
             lib.sz_fill_random.argtypes = [u64, ll, p, i, p]
             lib.sz_fill_random.restype = i
