@@ -251,6 +251,7 @@ call computes the same), then, last, the device line
 """
 
 import collections
+import contextlib
 import itertools
 import json
 import os
@@ -270,8 +271,22 @@ LINES = (64, 4096)
 LONG_PAIR = 100_000  # bench_wavefront's pair
 READS = (8, 8)  # long reads, lengths uniform in READ_LENGTHS
 READ_LENGTHS = (5000, 15001)
+# Phases 3 and 3d: a tier-B block of queries of 5, 8, 9, 16, 17, 32, 33 and
+# 64 words (64 w chars, or 64 (w - 1) + 1)
+MIXED_WORD_QUERIES = [320, 512, 513, 1024, 1025, 2048, 2049, 4096, 300, 1000]
 # Pairs of ~20,000 chars in phase 3c, m != n both ways
 WAVEFRONT_BIG = [(20000, 19000), (15000, 20011)]
+# Phase 3c, flat kernel: pairs at its strip and lane edges (rows 32 R - 1 ..
+# 32 R + 1 at R = 4, the lanes' 31-33 and 63-65 rows, both ways round, as
+# the shorter string gives the rows); a batch of more strips than the card
+# can hold at once (13,200 strips: 64 warps on each of 132 SMs hold 8,448);
+# a cap on the hand-off slots that splits phase 3c's batch into groups (its
+# largest, the 2500 x 1200 pair, takes 80,032 bytes of slots when affine).
+FLAT_EDGES = [(m, n) for m in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 257)
+              for n in (1, 2, 100)]
+FLAT_WIDE_EDGES = [(255, 300), (256, 2), (257, 260), (511, 1), (512, 600), (600, 513), (40, 300)]
+FLAT_MANY = ((300, 400), 4400)
+FLAT_CAP_BYTES = 100_000
 # Band pairs of phase 3c: near-duplicates (length, edit rate) and unrelated
 # pairs (m, n), of which 5000 x 4800 is over the widest band, 3000 x 10
 # has |m - n| over it, 200 x 1150 has n >> m and 1056 x 2000 takes the
@@ -645,8 +660,37 @@ def _host_ms(fn, sync, runs=3):
     return (time.perf_counter() - t0) / runs * 1e3
 
 
+@contextlib.contextmanager
+def _tier_b_segments(seg):
+    """Tier B in segments of ``seg`` lanes whatever the plan picks (the
+    plan's own pick when ``seg`` is None)."""
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+
+    plan = myers_mod.tier_b_plan
+    if seg is not None:
+        myers_mod.tier_b_plan = lambda *_: seg
+    try:
+        yield
+    finally:
+        myers_mod.tier_b_plan = plan
+
+
+def _each_segment(rows, fn):
+    """``fn()`` with tier B in each segment width (8 and 32 lanes) on a
+    block of ``rows`` rows that tier B takes, once with the plan's own pick
+    otherwise: ``[(width or None, result)]``."""
+    from stringzilla_tpu_torch.ops.myers import TIER_B_SEGMENTS, words_of
+
+    results = []
+    for seg in (TIER_B_SEGMENTS if words_of(rows) > 4 else (None,)):
+        with _tier_b_segments(seg):
+            results.append((seg, fn()))
+    return results
+
+
 def _check_myers_kernel(dev, sync, max_err):
-    """Phase 3: both Myers tiers against their plain version."""
+    """Phase 3: both Myers tiers against their plain version, tier B in
+    each of its segment widths."""
     import torch
     from stringzilla_tpu_torch.ops.myers import myers, myers_reference, words_of
 
@@ -664,19 +708,23 @@ def _check_myers_kernel(dev, sync, max_err):
         ("bounds w4", [0, 127, 128, 129, 255, 256], [0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257], 256, 257, (97, 99)),
         ("bounds w8", [255, 256, 257, 511, 512], [0, 1, 255, 256, 257, 511, 512, 513], 512, 513, (97, 99)),
         ("bounds w64", [0, 257, 2047, 2048, 2049, 4095, 4096], [0, 1, 64, 257, 2048, 4095, 4096], 4096, 4096, (97, 99)),
+        # tier B's runs of 1-8 words a lane (5-64 words in segments of 8
+        # and 32 lanes), candidates of every length in each warp
+        ("mixed words", MIXED_WORD_QUERIES, rng.integers(0, 2101, 61), 4096, 2100, (97, 123)),
     ]
     for name, q_lens, c_lens, rows, cand_len, (lo, hi) in cases:
         args = [torch.from_numpy(x).to(dev) for x in
                 _block(rng, q_lens, c_lens, rows, cand_len, lo, hi)]
-        got = myers(*args)
         want = myers_reference(*args)
-        sync()
-        err = int((got.long() - want.long()).abs().max())
         tier = "myers_tier_a" if words_of(rows) <= 4 else "myers_tier_b"
-        max_err[tier] = max(max_err.get(tier, 0), err)
-        print(f"[kernel] {name:22s} {tier} rows={rows} cand_len={cand_len} "
-              f"{len(q_lens)}x{len(c_lens)} max_abs_err={err}")
-        _check(torch.equal(got, want), f"kernel != plain version in case {name}")
+        for seg, got in _each_segment(rows, lambda: myers(*args)):
+            sync()
+            err = int((got.long() - want.long()).abs().max())
+            max_err[tier] = max(max_err.get(tier, 0), err)
+            lanes = f" S={seg}" if seg else ""
+            print(f"[kernel] {name:22s} {tier}{lanes} rows={rows} cand_len={cand_len} "
+                  f"{len(q_lens)}x{len(c_lens)} max_abs_err={err}")
+            _check(torch.equal(got, want), f"kernel != plain version in case {name}{lanes}")
 
 
 def _dp_configs(k):
@@ -805,13 +853,113 @@ def _check_lut_kernel(dev, sync, max_err):
     max_err["byte_lut"] = err
 
 
+def long_strings():
+    """Phase 4's ``long`` workload (``LONG``): queries and candidates of
+    300-4096 lowercase bytes, every fourth candidate a near-duplicate of a
+    query."""
+    long_rng = np.random.default_rng(SEED + 1)
+    long_q = [long_rng.integers(97, 123, n).astype(np.uint8).tobytes()
+              for n in long_rng.integers(300, 4097, LONG[0])]
+    long_c = []
+    for j, n in enumerate(long_rng.integers(300, 4097, LONG[1])):
+        chars = long_rng.integers(97, 123, n).astype(np.uint8)
+        if j % 4 == 0:  # near-duplicates of a query as well as random lines
+            src = np.frombuffer(long_q[j % LONG[0]], np.uint8)[:n]
+            keep = long_rng.random(len(src)) > 0.05
+            chars[: len(src)] = np.where(keep, src, chars[: len(src)])
+        long_c.append(chars.tobytes())
+    return long_q, long_c
+
+
+def myers_block(qs, cs, dev):
+    """One ``myers`` block of every query and one of every candidate, packed
+    on the card as the engine packs its blocks: the kernel's inputs when
+    timed alone."""
+    from stringzilla_tpu_torch import Tape
+    from stringzilla_tpu_torch.ops.pack_device import device_tape, pack_chars
+
+    rows = max(32, -(-max(map(len, qs)) // 32) * 32)
+    cand_len = max(map(len, cs))
+    qdt = device_tape(Tape.from_strings(qs), dev)
+    cdt = device_tape(Tape.from_strings(cs), dev)
+    q_offs, q_lens = qdt.bucket_arrays(np.arange(len(qs)))
+    c_offs, c_lens = cdt.bucket_arrays(np.arange(len(cs)))
+    return (pack_chars(qdt.data, q_offs, q_lens, row_len=rows, transpose=True, fill=-1),
+            q_lens.view(-1, 1),
+            pack_chars(cdt.data, c_offs, c_lens, row_len=cand_len, transpose=True, fill=0),
+            c_lens.view(1, -1))
+
+
+def tier_b_launch(block, dev, seg=None):
+    """A function that launches tier B's raw ``sz_myers`` on a packed byte
+    block, its match table built, its candidates ordered by length and its
+    segment width picked (``ops.myers.tier_b_plan``, or ``seg`` when given)
+    beforehand, and the output it writes. A library from before tier B took
+    its candidates by length (an ``sz_myers`` of 10 arguments) gets neither
+    the order nor the width."""
+    import torch
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+    from stringzilla_tpu_torch.utils import cuda_build
+
+    q_t, qlens, cands_t, clens = block
+    (rows, nq), (cand_len, nc) = q_t.shape, cands_t.shape
+    words = myers_mod.words_of(rows)
+    peq = myers_mod._peq(q_t, qlens, words)
+    out = torch.empty((nq, nc), dtype=torch.int32, device=dev)
+    by_length = torch.argsort(clens.view(-1)).to(torch.int32)
+    sms, stream = _launch_env(dev)
+    extra = []
+    if len(cuda_build.load().sz_myers.argtypes) > 10:
+        extra = [by_length.data_ptr(), myers_mod.tier_b_plan(words, nq, nc, sms) if seg is None
+                 else seg]
+    head = [peq.data_ptr(), words, qlens.data_ptr(), nq, cands_t.data_ptr(), clens.data_ptr()]
+    launch = _raw_launch("sz_myers", *head, *extra, cand_len, nc, out.data_ptr(), stream)
+    launch.keep = (peq, by_length)  # alive as long as the launch
+    launch.seg = extra[1] if extra else None
+    return launch, out
+
+
+def _engine_tier_b(engine, qs, cs, dev, sync, launcher=tier_b_launch):
+    """The tier-B blocks one call of ``engine`` launches (byte strings),
+    each one raw kernel launch on the engine's own packed block
+    (``launcher``) timed alone by CUDA events (the median of batches) and
+    checked against the plain version: a list of ``(rows, queries,
+    candidates, ms, bound ms, lanes a candidate)``, the bound counting each
+    query's own words."""
+    from stringzilla_tpu_torch.models import similarities as sim_mod
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+
+    real, blocks = sim_mod.myers, []
+
+    def spy(q_t, qlens, cands_t, clens, alphabet=256):
+        if myers_mod.words_of(q_t.shape[0]) > 4 and alphabet is not None:
+            blocks.append((q_t, qlens, cands_t, clens))
+        return real(q_t, qlens, cands_t, clens, alphabet=alphabet)
+
+    sim_mod.myers = spy
+    try:
+        engine(qs, cs)
+    finally:
+        sim_mod.myers = real
+    timed = []
+    for block in blocks:
+        (rows, nq), (_, nc) = block[0].shape, block[2].shape
+        launch, out = launcher(block, dev)
+        ms = _time_ms(launch, 10, sync)
+        _check(bool((out == myers_mod.myers_reference(*block)).all()),
+               f"tier B on the engine's {rows}-row block != the plain version")
+        word_steps = (np.ceil(block[1].cpu().numpy() / 64).sum()
+                      * block[3].cpu().numpy().astype(np.float64).sum())
+        timed.append((rows, nq, nc, ms, _bound(MYERS_OPS_PER_WORD_STEP * word_steps, 0)[0],
+                      launch.seg))
+    return timed
+
+
 def _myers_main_path(dev, sync, report):
     """Phase 4: unit-cost Levenshtein through the engine."""
-    import torch
-    from stringzilla_tpu_torch import LevenshteinDistances, Tape
+    from stringzilla_tpu_torch import LevenshteinDistances
     from stringzilla_tpu_torch.ops import myers as myers_mod
     from stringzilla_tpu_torch.ops.myers import myers, myers_reference
-    from stringzilla_tpu_torch.ops.pack_device import device_tape, pack_chars
     from tests.oracles import levenshtein
 
     rng = np.random.default_rng(SEED)  # bench.py's draws, in bench.py's order
@@ -825,17 +973,7 @@ def _myers_main_path(dev, sync, report):
 
     head_q = make_batch(HEADLINE[0], 128)
     head_c = make_batch(HEADLINE[1], 128)
-    long_rng = np.random.default_rng(SEED + 1)
-    long_q = [long_rng.integers(97, 123, n).astype(np.uint8).tobytes()
-              for n in long_rng.integers(300, 4097, LONG[0])]
-    long_c = []
-    for j, n in enumerate(long_rng.integers(300, 4097, LONG[1])):
-        chars = long_rng.integers(97, 123, n).astype(np.uint8)
-        if j % 4 == 0:  # near-duplicates of a query as well as random lines
-            src = np.frombuffer(long_q[j % LONG[0]], np.uint8)[:n]
-            keep = long_rng.random(len(src)) > 0.05
-            chars[: len(src)] = np.where(keep, src, chars[: len(src)])
-        long_c.append(chars.tobytes())
+    long_q, long_c = long_strings()
 
     engine = LevenshteinDistances()
     sync()
@@ -854,16 +992,8 @@ def _myers_main_path(dev, sync, report):
                f"{name}: result {res.dtype} {res.shape}")
         # the same packed device inputs for the kernel alone and the plain
         # version: one block of every query and one of every candidate
-        rows = max(32, -(-max(map(len, qs)) // 32) * 32)
-        cand_len = max(map(len, cs))
-        qdt = device_tape(Tape.from_strings(qs), dev)
-        cdt = device_tape(Tape.from_strings(cs), dev)
-        q_offs, q_lens = qdt.bucket_arrays(np.arange(len(qs)))
-        c_offs, c_lens = cdt.bucket_arrays(np.arange(len(cs)))
-        packed = (pack_chars(qdt.data, q_offs, q_lens, row_len=rows,
-                             transpose=True, fill=-1), q_lens.view(-1, 1),
-                  pack_chars(cdt.data, c_offs, c_lens, row_len=cand_len,
-                             transpose=True, fill=0), c_lens.view(1, -1))
+        packed = myers_block(qs, cs, dev)
+        (rows, _), (cand_len, _) = packed[0].shape, packed[2].shape
         plain = myers_reference(*packed)
         _check(np.array_equal(res.astype(np.int64), plain.cpu().numpy()),
                f"{name}: engine result != plain version on the card")
@@ -894,9 +1024,19 @@ def _myers_main_path(dev, sync, report):
                             bound_by=bound_by, library_ms=None)
         print(f"[perf] {name} rows={rows} cand_len={cand_len} cells={cells:.0f}: "
               f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
-              f"kernel {kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; "
+              f"kernel {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
+              f"{cells / kernel_ms / 1e6:.3f} GCUPS; "
               f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of it")
+        if tier == "myers_tier_b" and dev.type == "cuda":
+            seg = myers_mod.tier_b_plan(myers_mod.words_of(rows), len(qs), len(cs),
+                                        _launch_env(dev)[0])
+            print(f"[perf] {name}: tier B takes the block in segments of {seg} lanes")
+            timed = _engine_tier_b(engine, qs, cs, dev, sync)
+            print(f"[perf] {name}: the engine's own tier-B launches: {len(timed)}, kernel "
+                  f"{sum(t[3] for t in timed):.4f} ms summed by CUDA events "
+                  f"({', '.join(f'{r} rows {q}x{c} S={g} {t:.4f}' for r, q, c, t, _, g in timed)}"
+                  f"); bound {sum(t[4] for t in timed):.4f} ms summed over its blocks")
 
 
 def _proteins(rng):
@@ -1087,58 +1227,84 @@ def _wf_pairs(rng, shapes, lo, hi, dev):
     return (chars, *np.array(cols, np.int64).T)
 
 
+def _flat_config(cfg) -> int:
+    """The flat kernel's configuration index of an engine config, as
+    ``wavefront_batch`` computes it."""
+    return (8 * (cfg.objective == "max") + 4 * (cfg.locality == "local") + 2 * cfg.is_affine
+            + cfg.uses_classes)
+
+
 def _check_wavefront_kernel(dev, sync, max_err):
     """Phase 3c: the flat wavefront in all 16 configurations, with costs of
-    both signs, against its plain version."""
+    both signs, against its plain version: pairs at the strip and lane
+    edges; in two configurations a batch of more strips than the card holds
+    at once (edges too); a split over groups."""
     import torch
     from stringzilla_tpu_torch.ops import wavefront as wf_mod
-    from stringzilla_tpu_torch.ops.wavefront import (config_costs, wavefront_batch,
+    from stringzilla_tpu_torch.ops.wavefront import (FLAT_WARPS, config_costs, flat_card,
+                                                     flat_plan, wavefront_batch,
                                                      wavefront_reference)
 
     rng = np.random.default_rng(SEED + 5)
     table = torch.from_numpy(rng.integers(-9, 10, (32, 32)).astype(np.int32)).to(dev)
-    shapes = [(1, 1), (1, 300), (300, 1), (31, 63), (32, 64), (33, 65), (63, 33),
-              (64, 32), (65, 31), (700, 2000), (2500, 1200), (4097, 90)]
+    shapes = FLAT_EDGES + [(1, 300), (300, 1), (31, 63), (32, 64), (33, 65), (63, 33), (64, 32),
+                           (65, 31), (700, 3), (3, 700), (700, 2000), (2500, 1200), (4097, 90),
+                           (90, 4097)]
     batches = {  # class ids 0-39 (>= 32 clamp to 31); raw chars 0-3
         True: _wf_pairs(rng, shapes, 0, 40, dev), False: _wf_pairs(rng, shapes, 0, 4, dev)}
+    many = FLAT_WIDE_EDGES + [FLAT_MANY[0]] * FLAT_MANY[1]
+    wide = {True: _wf_pairs(rng, many, 0, 40, dev), False: _wf_pairs(rng, many, 0, 4, dev)}
+    counts = wf_mod.KERNEL_LAUNCHES
     err = 0
+
+    def check(args, kw, what):
+        nonlocal err
+        before = counts["wavefront_flat"]
+        got = wavefront_batch(*args, **kw)
+        launched = counts["wavefront_flat"] - before
+        want = wavefront_reference(*args, **kw)
+        sync()
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        _check(torch.equal(got, want), f"wavefront kernel != plain version in {what}")
+        return launched
+
+    plans = {}
     for k in (0, 1):  # both signs of every cost
         for c, cfg in enumerate(_dp_configs(k)):
+            kw = config_costs(cfg, table)
             args = batches[cfg.uses_classes]
             if k == 0 and c in (0, 15):  # min-global-linear-uniform, max-local-affine-classes
                 args = _wf_pairs(rng, shapes + WAVEFRONT_BIG, 0, 40 if cfg.uses_classes else 4, dev)
-            kw = config_costs(cfg, table)
-            got = wavefront_batch(*args, **kw)
-            want = wavefront_reference(*args, **kw)
-            sync()
-            err = max(err, int((got.long() - want.long()).abs().max()))
-            _check(torch.equal(got, want), f"wavefront kernel != plain version in {cfg}")
+            check(args, kw, f"{cfg}, costs set {k}")
+            if k == 0 and c in (0, 15):  # more strips than the card holds
+                plan = flat_plan([(int(m), int(n)) for m, n in zip(wide[True][2], wide[True][4])],
+                                 cfg.is_affine, *flat_card(dev, _flat_config(cfg)))
+                held = plan.groups[0].ctas * FLAT_WARPS
+                _check(plan.groups[0].claims > held, f"the wide batch's plan {plan.groups[0]}")
+                launched = check(wide[cfg.uses_classes], kw, f"{cfg}, the wide batch")
+                _check(launched == len(plan.groups), f"{launched} launches, {plan.groups}")
+                plans[str(cfg)] = (plan.groups[0].claims, held)
         print(f"[kernel] wavefront_flat, costs set {k}: 16 configurations exact on "
-              f"{len(shapes)} pairs of 1-4097 chars, {len(WAVEFRONT_BIG)} more of "
-              f"~{WAVEFRONT_BIG[0][0]} in two")
-    # A frontier cap below the batch's need splits it into groups, each its
-    # own run of launches: more launches than the batch takes whole.
+              f"{len(shapes)} pairs of 1-4097 chars (strip and lane edges), "
+              f"{len(WAVEFRONT_BIG)} more of ~{WAVEFRONT_BIG[0][0]} in two"
+              + (f"; and two of them on {len(many)} pairs in one launch, strips / warps "
+                 f"the grid holds at once {sorted(set(plans.values()))}" if k == 0 else ""))
+    # A cap on the hand-off slots below the batch's need splits it into
+    # groups, one launch each
     args = batches[True]
     kw = config_costs(cfg, table)
-    counts = wf_mod.KERNEL_LAUNCHES
-    before = counts["wavefront_flat"]
-    wavefront_batch(*args, **kw)
-    whole = counts["wavefront_flat"] - before
     cap = wf_mod.SCRATCH_CAP_BYTES
     try:
-        wf_mod.SCRATCH_CAP_BYTES = 4 * 2000
-        before = counts["wavefront_flat"]
-        got = wavefront_batch(*args, **kw)
-        split = counts["wavefront_flat"] - before
+        wf_mod.SCRATCH_CAP_BYTES = FLAT_CAP_BYTES
+        plan = flat_plan([(int(m), int(n)) for m, n in zip(args[2], args[4])], cfg.is_affine,
+                         *flat_card(dev, _flat_config(cfg)))
+        launched = check(args, kw, f"{cfg} under a cap of {FLAT_CAP_BYTES} bytes")
     finally:
         wf_mod.SCRATCH_CAP_BYTES = cap
-    want = wavefront_reference(*args, **kw)
-    sync()
-    _check(split > whole and torch.equal(got, want),
-           f"wavefront kernel under a frontier cap ({split} launches, {whole} whole) "
-           f"!= plain version")
-    print(f"[kernel] wavefront_flat under a 2,000-word frontier cap: {split} launches "
-          f"against {whole} whole, exact")
+    _check(launched == len(plan.groups) > 1, f"{launched} launches for {len(plan.groups)} groups")
+    print(f"[kernel] wavefront_flat under a {FLAT_CAP_BYTES}-byte cap on its hand-off slots: "
+          f"{len(plan.groups)} groups of {[g.pairs for g in plan.groups]} pairs, "
+          f"{launched / len(plan.groups):.0f} launch a group, exact")
     max_err["wavefront_flat"] = err
 
 
@@ -1288,8 +1454,9 @@ def _wavefront_main_path(dev, sync, report):
     from stringzilla_tpu_torch.ops import similarity_dp as dp_mod
     from stringzilla_tpu_torch.ops import wavefront as wf_mod
     from stringzilla_tpu_torch.ops.wavefront import (band_batch, band_card, band_plan,
-                                                     band_reference, config_costs,
-                                                     wavefront_batch, wavefront_reference)
+                                                     band_reference, config_costs, flat_card,
+                                                     flat_plan, wavefront_batch,
+                                                     wavefront_reference)
     from tests.oracles import score_affine
 
     rng = np.random.default_rng(SEED)  # bench_wavefront's draws, in its order
@@ -1442,7 +1609,25 @@ def _wavefront_main_path(dev, sync, report):
               + (f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
                  if plain_ms is not None else "plain on all pairs not run; ")
               + bound)
-        if not band or dev.type != "cuda":  # a CPU rehearsal runs the plain version: no plan
+        if dev.type != "cuda":  # a CPU rehearsal runs the plain version: no plan
+            continue
+        if not band:  # the flat kernel's plan: one launch a group
+            pairs = [(int(ql[i]), int(cl[j])) for i, j in zip(qi, cj)]
+            card = flat_card(dev, _flat_config(cfg))
+            plan_s = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                plan = flat_plan(pairs, cfg.is_affine, *card)
+                plan_s.append(time.perf_counter() - t0)
+            before = wf_mod.KERNEL_LAUNCHES["wavefront_flat"]
+            call()
+            print(f"[perf] {name}: wavefront_flat plan R = {wf_mod.FLAT_ROWS}, "
+                  f"{sum(plan.strips)} strips of {32 * wf_mod.FLAT_ROWS} rows in "
+                  f"{len(plan.groups)} group(s) of {[g.ctas for g in plan.groups]} CTAs "
+                  f"(the card holds {plan.ctas_per_sm} an SM); "
+                  f"{wf_mod.KERNEL_LAUNCHES['wavefront_flat'] - before} launch(es) a call; "
+                  f"flat_plan {1e3 * float(np.median(plan_s)):.4f} ms of host time "
+                  f"(median of 21)")
             continue
         # The band kernel's plan, for the long pair the model's chain (steps
         # on the critical path), and the flat kernel on the same pairs
@@ -1456,8 +1641,14 @@ def _wavefront_main_path(dev, sync, report):
                      f"{kernel_ms * 1e3 / chain:.4f} us a step")
         print(line)
         flat_ms = _time_ms(lambda: wavefront_batch(*packed), 3, sync)
-        print(f"[perf] {name}: wavefront_flat on the same pairs {flat_ms:.4f} ms = "
-              f"{cells / flat_ms / 1e6:.3f} GCUPS, {flat_ms / kernel_ms:.2f}x the band's time")
+        flat_bound = _bound(_dp_ops_per_cell(cfg) * cells, nbytes)[0]
+        plan = flat_plan([(int(ql[i]), int(cl[j])) for i, j in zip(qi, cj)], False,
+                         *flat_card(dev, 0))
+        print(f"[perf] {name}: wavefront_flat on the same pairs {flat_ms:.4f} ms "
+              f"[{flat_ms.lo:.4f}-{flat_ms.hi:.4f}] = {cells / flat_ms / 1e6:.3f} GCUPS, "
+              f"{flat_ms / kernel_ms:.2f}x the band's time; R = {wf_mod.FLAT_ROWS}, "
+              f"{sum(plan.strips)} strips, {len(plan.groups)} launch(es); bound on every "
+              f"cell {flat_bound:.4f} ms (operations), {100 * flat_bound / flat_ms:.2f}% of it")
 
 
 def _fp_inputs(dev, docs):
@@ -1564,22 +1755,24 @@ def _check_rune_myers_kernel(dev, sync, max_err):
         ("runes w4", [256, 255, 1, 64], rng.integers(0, 301, 300), 256, 300, CJK),
         ("runes w5", [257, 300, 64], rng.integers(0, 400, 64), 320, 400, mixed),
         ("runes w64", [4096, 4000, 257, 1], rng.integers(0, 4097, 24), 4096, 4096, CJK),
+        ("runes mixed words", MIXED_WORD_QUERIES, rng.integers(0, 1201, 37), 4096, 1200, CJK),
     ]
     for name, q_lens, c_lens, rows, cand_len, runes in cases:
         q_t, ql, c_t, cl = _rune_block(rng, q_lens, c_lens, rows, cand_len, runes)
         c_t[:2, 1] = [0, -1]  # U+0000 matches; the padding value is a rune like any
         args = [torch.from_numpy(x).to(dev) for x in (q_t, ql, c_t, cl)]
-        got = myers(*args, alphabet=None)
         want = myers_reference(*args, alphabet=None)
-        sync()
-        err = int((got.long() - want.long()).abs().max())
         tier = ("myers_tier_a" if words_of(rows) <= 4 else "myers_tier_b") + "_runes"
-        max_err[tier] = max(max_err.get(tier, 0), err)
         distinct = len(np.unique(np.concatenate([q_t[:m, i] for i, m in enumerate(q_lens)])))
-        print(f"[kernel] {name:14s} {tier} rows={rows} cand_len={cand_len} "
-              f"{len(q_lens)}x{len(c_lens)}, {distinct} distinct runes in the block, "
-              f"max_abs_err={err}")
-        _check(torch.equal(got, want), f"rune kernel != plain version in case {name}")
+        for seg, got in _each_segment(rows, lambda: myers(*args, alphabet=None)):
+            sync()
+            err = int((got.long() - want.long()).abs().max())
+            max_err[tier] = max(max_err.get(tier, 0), err)
+            lanes = f" S={seg}" if seg else ""
+            print(f"[kernel] {name:14s} {tier}{lanes} rows={rows} cand_len={cand_len} "
+                  f"{len(q_lens)}x{len(c_lens)}, {distinct} distinct runes in the block, "
+                  f"max_abs_err={err}")
+            _check(torch.equal(got, want), f"rune kernel != plain version in case {name}{lanes}")
         res = got.cpu().numpy()
         # tests/oracles.py's Wagner-Fischer is pure Python: the numpy one
         # takes the 4096-rune queries
@@ -1667,7 +1860,8 @@ def _fingerprint_main_path(dev, sync, report):
               f"engine to device_out {device_ms:.3f} ms = {hashes / device_ms / 1e6:.3f} Ghash/s; "
               f"device_out + band_keys(16) {bands_ms:.3f} ms; "
               f"engine+pull {engine_ms:.3f} ms = {hashes / engine_ms / 1e6:.3f} Ghash/s; "
-              f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+              f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / kernel_ms:.1f}% of it")
 
 
 def _utf8_sets():
@@ -1769,9 +1963,10 @@ def _utf8_main_path(dev, sync, report):
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         print(f"[perf] {name} rows={rows} cand_len={cand_len} cells={cells:.0f}: "
               f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
-              f"{tier} {kernel_ms:.4f} ms = {cells / kernel_ms / 1e6:.3f} GCUPS; "
+              f"{tier} {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
+              f"{cells / kernel_ms / 1e6:.3f} GCUPS; "
               f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of it")
 
     # A malformed collection: its strings are decoded on the host, each
     # maximal invalid subpart becoming U+FFFD, then scored on the card.
@@ -2087,8 +2282,10 @@ def _buffer_main_path(dev, sync, report):
     print(f"[engine] translate {n >> 20} MiB equals numpy's lut[buf]")
     print(f"[perf] translate {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
           f"Str call, mirror cached, host pull included {call_ms:.3f} ms = "
-          f"{n / call_ms / 1e6:.3f} GB/s; byte_lut kernel {kernel_ms:.4f} ms = "
-          f"{2 * n / kernel_ms / 1e6:.3f} GB/s moved")
+          f"{n / call_ms / 1e6:.3f} GB/s; byte_lut kernel {kernel_ms:.4f} ms "
+          f"[{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = {2 * n / kernel_ms / 1e6:.3f} GB/s moved; "
+          f"bound {_bound(0, 2.0 * n)[0]:.4f} ms (bytes: the GiB read and written once), "
+          f"{100 * _bound(0, 2.0 * n)[0] / kernel_ms:.1f}% of it")
     del s, mirror, out_s, buf
 
     # -- UTF-8 256 MiB -----------------------------------------------------
@@ -2866,7 +3063,8 @@ def _mim_main_path(dev, sync, report):
               f"{kernel_ms:.4f} ms (batches {kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}) for both "
               f"sweeps' 4 launches = {m * n / kernel_ms / 1e6:.3f} GCUPS, "
               f"{kernel_ms / steps * 1e3:.4f} us a step of {steps}; wavefront_flat on the same "
-              f"pair {flat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+              f"pair {flat_ms:.4f} ms [{flat_ms.lo:.4f}-{flat_ms.hi:.4f}], "
+              f"{100 * bound_ms / flat_ms:.1f}% of the bound; bound {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / kernel_ms:.1f}% of the kernel's time; with the unfused "
               f"count {unfused_ms:.4f} ms, {100 * unfused_ms / kernel_ms:.1f}%"
               + (f"; plain {plain_ms:.3f} ms" if k == 0 else ""))

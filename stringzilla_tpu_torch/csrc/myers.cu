@@ -13,11 +13,11 @@
 // recurrence is ~17 dependent 64-bit integer ops (an add with carry-out,
 // ~12 logic ops, two shifts); the GPU issues each as two 32-bit ops, so a
 // cell costs ~0.5 integer instruction and the kernel is bound by integer
-// issue, not by memory: a pair reads one candidate byte per step (int32,
-// coalesced across threads) and W words of the query's match table (PEQ).
-// The PEQ read is the one random access per step: tier A serves it from
-// shared memory (256 x W words, <= 8 KB per query), tier B from L1/L2
-// (up to 128 KB per query, read as W consecutive words per warp).
+// issue, not by memory: a pair reads one candidate char per step and the
+// query's match table (PEQ) row of that char. So what counts is the work a
+// step does that is no cell of the pair: words above the query's length,
+// idle lanes, a warp's steps past a candidate's end, and the ballots that
+// carry a word's bits to the next.
 //
 // What the design does about it. The TPU kernels packed 32 cells per int32
 // lane and built each step's match mask with an MXU one-hot matmul; Hopper
@@ -25,10 +25,30 @@
 // table read and every word holds 64 cells. Tier A keeps one pair per
 // thread with its W <= 4 words in registers (fully unrolled, sequential
 // carry); threads run across candidates, so the step's candidate reads
-// coalesce and the query's PEQ is loaded once per block. Tier B keeps one
-// pair per warp, lane l holding words l and l + 32: the add's carry crosses
-// lanes as a 64-bit generate/propagate ballot resolved with one add, and the
-// one-bit shift between words is a ballot of top bits.
+// coalesce and the query's PEQ (256 x W words, <= 8 KB) is loaded into
+// shared memory once per block. Tier B runs each pair on the query's own
+// words, W = ceil(m / 64), not the block's (carries and shifts only move
+// upward, so the words above do nothing): a segment of S lanes a candidate,
+// 32 / S candidates a warp, lane l holding the run of L = ceil(W / S)
+// consecutive words lL .. lL + L - 1. A step ripples the add's carry and the
+// one-bit shifts through a run in registers; across lanes, the runs'
+// generate/propagate bits go by a ballot cut to the segment, resolved with
+// one add, and the top bits of their last words by a second pair of
+// ballots, so a step's four ballots serve L words. S is the host's pick
+// (ops/myers.py tier_b_plan): 8, which wastes the fewest lanes and ballots,
+// unless the launch would then leave the card short of warps (a block of
+// few candidates), where 32 lanes, a warp a candidate, cut each lane's run
+// to a quarter and give the card four times the warps. The candidates are taken in the order of their
+// lengths (the host sorts them), so those of a warp end together; a lane
+// past its own candidate's end keeps its state, and the steps below every
+// candidate's end skip that select. The candidate chars come a chunk of S
+// steps ahead (lane l of a segment loads char j0 + l, a step takes its char
+// by one shuffle), and the PEQ words of the next step are read during this
+// one, through L1 (a query's rows are read by its CTA's 8 warps; the chars
+// a block uses are few rows of the table), so no step waits on a load
+// chain. The kernel is built for the block's longest run (1, 2, 4 or 8
+// words, from the host's words), so a block of short queries is not held to
+// the registers of the longest.
 //
 // Runes (UTF-32, or any int32 values). The JAX kernel with alphabet=None
 // builds each step's match mask by comparing the candidate rune with every
@@ -49,6 +69,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -56,7 +77,7 @@ namespace {
 
 constexpr int kAlphabet = 256;
 constexpr int kThreadsA = 256;  // tier A: one candidate per thread
-constexpr int kWarpsB = 8;      // tier B: one candidate per warp
+constexpr int kWarpsB = 8;      // tier B: warps a CTA, fewer when the candidates are few
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRunesB = 64 * 64;  // tier B: a query's distinct runes, <= 4096
 
@@ -153,108 +174,249 @@ myers_tier_a(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_o
   out[static_cast<size_t>(q) * nc + cand] = n + delta;
 }
 
-// One warp per (query, candidate); lane l holds words l + 32 k, k < K.
-// Runes as in tier A, with the query's sorted runes (<= 4096) in shared
-// memory and its K_q x words PEQ rows read from global memory.
-template <int K, bool kRunes>
+// Tier B: each query's own W = ceil(m / 64) words in a segment of S lanes
+// (8 or 32), lane l holding the run of L = ceil(W / S) consecutive words
+// lL .. lL + L - 1; 32 / S candidates a warp, taken in the order `order`
+// gives (by length, so that the candidates of a warp end together). A step
+// ripples the add's carry and the one-bit shifts through a lane's run in
+// registers; across lanes, the run's generate/propagate bits and its top
+// word's top bits go by ballots cut to the segment.
+template <int S, int L, bool kRunes>
+__device__ void tier_b_run(const int32_t* skeys, int n_keys, const uint64_t* __restrict__ qpeq,
+                           int words, int m, int W, const int32_t* __restrict__ cands_t,
+                           const int32_t* __restrict__ clens, const int32_t* __restrict__ order,
+                           int cand_len, int nc, int slot0, int32_t* __restrict__ out) {
+  constexpr unsigned kSegMask = S == 32 ? kFull : (1u << (S & 31)) - 1u;
+  const int lane = threadIdx.x & 31;
+  const int shift = lane & ~(S - 1);  // the segment's first lane
+  const int sl = lane & (S - 1);       // this lane's place in it
+  const int slot = slot0 + shift / S;
+  const bool has = slot < nc;
+  const int cand = has ? order[slot] : 0;
+  const int n = has ? clamp_int(clens[cand], 0, cand_len) : 0;
+  const int n_hi = __reduce_max_sync(kFull, n);
+  const int n_lo = __reduce_min_sync(kFull, has ? n : n_hi);  // every candidate is live below it
+  const int w0 = sl * L;
+  uint64_t vp[L], vn[L], eq[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    vp[k] = low_bits(clamp_int(m - 64 * (w0 + k), 0, 64));
+    vn[k] = 0;
+  }
+  // Candidate chars a chunk of S steps at a time, a chunk ahead: lane l
+  // of a segment holds char j0 + l of its candidate; a step takes its char
+  // by one shuffle, so the PEQ read never waits on a char load.
+  const int32_t* col = cands_t + cand;
+  const auto chars_at = [&](int j0) {
+    const int j = j0 + sl;
+    return j < n ? __ldg(col + static_cast<size_t>(j) * nc) : 0;
+  };
+  // The run's PEQ words of a candidate char: a byte's row, or the rune's
+  // row found by binary search (a rune not in the query matches nothing).
+  const unsigned rows = kRunes ? static_cast<unsigned>(n_keys) : static_cast<unsigned>(kAlphabet);
+  const auto load_eq = [&](int c, uint64_t* e) {
+    unsigned row;
+    if constexpr (kRunes) {
+      const int r = find_rune(skeys, n_keys, c);
+      row = r < 0 ? ~0u : static_cast<unsigned>(r);
+    } else {
+      row = static_cast<unsigned>(c);
+    }
+    const uint64_t* p = qpeq + static_cast<size_t>(row < rows ? row : 0) * words + w0;
+#pragma unroll
+    for (int k = 0; k < L; ++k) e[k] = row < rows && w0 + k < W ? __ldg(p + k) : 0ull;
+  };
+  int cur = chars_at(0), nxt = chars_at(S);
+  load_eq(__shfl_sync(kFull, cur, shift), eq);
+
+  // Step j with the match words eq; those of step j + 1 (char u + 1 of the
+  // chunk) are read first. kTail: a candidate of the warp may have ended (j
+  // >= n_lo), so each lane keeps its state past its own end.
+  const auto step = [&](int u, int j, auto tail) {
+    constexpr bool kTail = decltype(tail)::value;
+    uint64_t next[L];
+    load_eq(u + 1 < S ? __shfl_sync(kFull, cur, shift + u + 1) : __shfl_sync(kFull, nxt, shift),
+            next);
+    // The run's add (eq & vp) + vp with no carry in: each word's sum x, its
+    // carry out g and whether it passes a carry on (p, the sum all ones);
+    // the run generates (gen) or propagates (prop) a carry.
+    uint64_t x[L];
+    bool g[L], p[L];
+    bool gen = false, prop = true;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const uint64_t t = eq[k] & vp[k];
+      x[k] = t + vp[k];
+      g[k] = x[k] < t;
+      p[k] = x[k] == ~0ull;
+      gen = g[k] || (p[k] && gen);
+      prop = prop && p[k];
+    }
+    // gen and prop are disjoint, so with a = gen | prop the sum a + gen has
+    // exactly the runs' carries: bit l of cin is the carry into lane l's run
+    // (the carry out of the top run is dropped).
+    const unsigned gb = (__ballot_sync(kFull, gen) >> shift) & kSegMask;
+    const unsigned pb = (__ballot_sync(kFull, prop) >> shift) & kSegMask;
+    const unsigned a = gb | pb;
+    bool carry = (((a + gb) ^ a ^ gb) >> sl) & 1u;
+    uint64_t ph[L], mh[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const uint64_t sum = x[k] + static_cast<uint64_t>(carry);
+      carry = g[k] || (p[k] && carry);
+      const uint64_t xh = (sum ^ vp[k]) | eq[k];
+      ph[k] = vn[k] | ~(xh | vp[k]);
+      mh[k] = vp[k] & xh;
+    }
+    // The one-bit shifts: in the run from word to word, into its first word
+    // from the top word of the run below (word 0 takes D[0][j] = j).
+    const unsigned pt = (__ballot_sync(kFull, ph[L - 1] >> 63) >> shift) & kSegMask;
+    const unsigned mt = (__ballot_sync(kFull, mh[L - 1] >> 63) >> shift) & kSegMask;
+    uint64_t ph_in = sl == 0 ? 1ull : (pt >> (sl - 1)) & 1u;
+    uint64_t mh_in = sl == 0 ? 0ull : (mt >> (sl - 1)) & 1u;
+    const bool live = !kTail || j < n;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const uint64_t xv = eq[k] | vn[k];
+      const uint64_t phs = (ph[k] << 1) | ph_in;
+      const uint64_t mhs = (mh[k] << 1) | mh_in;
+      ph_in = ph[k] >> 63;
+      mh_in = mh[k] >> 63;
+      if (live) {
+        vp[k] = mhs | ~(xv | phs);
+        vn[k] = phs & xv;
+      }
+      eq[k] = next[k];
+    }
+  };
+  for (int j0 = 0; j0 < n_hi; j0 += S) {
+    if (j0 + S <= n_lo) {
+#pragma unroll
+      for (int u = 0; u < S; ++u) step(u, j0 + u, std::false_type{});
+    } else {
+#pragma unroll
+      for (int u = 0; u < S; ++u)
+        if (j0 + u < n_hi) step(u, j0 + u, std::true_type{});
+    }
+    cur = nxt;
+    nxt = chars_at(j0 + 2 * S);
+  }
+  int delta = 0;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const uint64_t mask = low_bits(clamp_int(m - 64 * (w0 + k), 0, 64));
+    delta += __popcll(vp[k] & mask) - __popcll(vn[k] & mask);
+  }
+#pragma unroll
+  for (int offset = S / 2; offset > 0; offset >>= 1)
+    delta += __shfl_xor_sync(kFull, delta, offset);
+  if (sl == 0 && has) out[cand] = n + delta;
+}
+
+// A CTA of up to kWarpsB warps takes query q (blockIdx.x / cand_blocks)
+// and 32 / S candidates a warp of those in `order`. kMaxRun is the longest
+// run the block needs (the host's words / S, rounded up to 1, 2, 4 or 8), so
+// that a block of short queries is not held to the registers of the longest
+// run.
+template <int S, int kMaxRun, bool kRunes>
 __global__ void __launch_bounds__(32 * kWarpsB)
 myers_tier_b(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_offs,
              const uint64_t* __restrict__ peq, int words,
              const int32_t* __restrict__ qlens, const int32_t* __restrict__ cands_t,
-             const int32_t* __restrict__ clens, int cand_len, int nc,
-             int cand_blocks, int32_t* __restrict__ out) {
+             const int32_t* __restrict__ clens, const int32_t* __restrict__ order, int cand_len,
+             int nc, int cand_blocks, int32_t* __restrict__ out) {
   __shared__ int32_t skeys[kRunes ? kMaxRunesB : 1];
-  const int lane = threadIdx.x & 31;
   const int q = blockIdx.x / cand_blocks;
-  const int cand = (blockIdx.x % cand_blocks) * kWarpsB + (threadIdx.x >> 5);
   int n_keys = 0;
   const uint64_t* qpeq;
   if constexpr (kRunes) {
     const int first = key_offs[q];
     n_keys = key_offs[q + 1] - first;
-    for (int i = threadIdx.x; i < n_keys; i += 32 * kWarpsB) skeys[i] = keys[first + i];
+    for (int i = threadIdx.x; i < n_keys; i += blockDim.x) skeys[i] = keys[first + i];
     __syncthreads();  // before any warp leaves
     qpeq = peq + static_cast<size_t>(first) * words;
   } else {
     qpeq = peq + static_cast<size_t>(q) * kAlphabet * words;
   }
-  if (cand >= nc) return;  // warp-uniform: the ballots below see full warps
-
+  const int warps = blockDim.x >> 5;
+  const int slot0 = ((blockIdx.x % cand_blocks) * warps + (threadIdx.x >> 5)) * (32 / S);
+  if (slot0 >= nc) return;  // warp-uniform: the ballots below see full warps
   const int m = clamp_int(qlens[q], 0, 64 * words);
-  const int n = clamp_int(clens[cand], 0, cand_len);
-  uint64_t vp[K], vn[K], mask[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    mask[k] = low_bits(clamp_int(m - 64 * (lane + 32 * k), 0, 64));
-    vp[k] = mask[k];
-    vn[k] = 0;
-  }
-  const int32_t* col = cands_t + cand;
-  for (int j = 0; j < n; ++j) {
-    // the match table's row of candidate char j, or an out-of-range row;
-    // a rune's search is the same for every lane, so its reads broadcast
-    unsigned c;
-    if constexpr (kRunes) {
-      const int row = find_rune(skeys, n_keys, col[static_cast<size_t>(j) * nc]);
-      c = row < 0 ? ~0u : static_cast<unsigned>(row);
-    } else {
-      c = static_cast<unsigned>(col[static_cast<size_t>(j) * nc]);
+  const int W = max(1, (m + 63) / 64);  // the query's own words
+  const int run = min((W + S - 1) / S, kMaxRun);
+  int32_t* row = out + static_cast<size_t>(q) * nc;
+#define SZ_TIER_B(L)                                                                             \
+  tier_b_run<S, L, kRunes>(skeys, n_keys, qpeq, words, m, W, cands_t, clens, order, cand_len, nc, \
+                           slot0, row)
+  if constexpr (kMaxRun == 1) {
+    SZ_TIER_B(1);
+  } else if constexpr (kMaxRun == 2) {
+    if (run == 1) SZ_TIER_B(1);
+    else SZ_TIER_B(2);
+  } else if constexpr (kMaxRun == 4) {
+    switch (run) {
+      case 1: SZ_TIER_B(1); break;
+      case 2: SZ_TIER_B(2); break;
+      case 3: SZ_TIER_B(3); break;
+      default: SZ_TIER_B(4); break;
     }
-    uint64_t eq[K], s1[K];
-    uint64_t gen = 0, prop = 0;  // bit w: word w generates / propagates a carry
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int w = lane + 32 * k;
-      eq[k] = ((kRunes ? c < static_cast<unsigned>(n_keys) : c < kAlphabet) && w < words)
-                  ? qpeq[static_cast<size_t>(c) * words + w] : 0ull;
-      const uint64_t t = eq[k] & vp[k];
-      s1[k] = t + vp[k];
-      gen |= static_cast<uint64_t>(__ballot_sync(kFull, s1[k] < t)) << (32 * k);
-      prop |= static_cast<uint64_t>(__ballot_sync(kFull, s1[k] == ~0ull)) << (32 * k);
-    }
-    // gen and prop are disjoint, so with a = gen | prop the sum a + gen has
-    // exactly the word carries of the multiword add: bit w of cin is the
-    // carry into word w (the carry out of the top word is dropped).
-    const uint64_t a = gen | prop;
-    const uint64_t cin = (a + gen) ^ a ^ gen;
-    uint64_t xv[K], ph[K], mh[K];
-    uint64_t ph_top = 0, mh_top = 0;  // bit w: top bit of word w
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int w = lane + 32 * k;
-      const uint64_t s = s1[k] + ((cin >> w) & 1ull);
-      xv[k] = eq[k] | vn[k];
-      const uint64_t xh = (s ^ vp[k]) | eq[k];
-      ph[k] = vn[k] | ~(xh | vp[k]);
-      mh[k] = vp[k] & xh;
-      ph_top |= static_cast<uint64_t>(__ballot_sync(kFull, ph[k] >> 63)) << (32 * k);
-      mh_top |= static_cast<uint64_t>(__ballot_sync(kFull, mh[k] >> 63)) << (32 * k);
-    }
-    const uint64_t ph_in = (ph_top << 1) | 1ull;  // word 0 takes D[0][j] = j
-    const uint64_t mh_in = mh_top << 1;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int w = lane + 32 * k;
-      const uint64_t phs = (ph[k] << 1) | ((ph_in >> w) & 1ull);
-      const uint64_t mhs = (mh[k] << 1) | ((mh_in >> w) & 1ull);
-      vp[k] = mhs | ~(xv[k] | phs);
-      vn[k] = phs & xv[k];
+  } else {
+    switch (run) {
+      case 1: SZ_TIER_B(1); break;
+      case 2: SZ_TIER_B(2); break;
+      case 3: SZ_TIER_B(3); break;
+      case 4: SZ_TIER_B(4); break;
+      case 5: SZ_TIER_B(5); break;
+      case 6: SZ_TIER_B(6); break;
+      case 7: SZ_TIER_B(7); break;
+      default: SZ_TIER_B(8); break;
     }
   }
-  int delta = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    delta += __popcll(vp[k] & mask[k]) - __popcll(vn[k] & mask[k]);
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1)
-    delta += __shfl_xor_sync(kFull, delta, offset);
-  if (lane == 0) out[static_cast<size_t>(q) * nc + cand] = n + delta;
+#undef SZ_TIER_B
+}
+
+// Tier B in segments of S lanes: CTAs of fewer warps where kWarpsB would
+// leave SMs without a CTA (a block of few candidates), the kernel built for
+// the block's longest run (S = 32 runs at most 2 words a lane).
+template <int S, bool kRunes>
+cudaError_t launch_b(const int32_t* keys, const int32_t* key_offs, const uint64_t* peq, int words,
+                     const int32_t* qlens, int nq, const int32_t* cands_t, const int32_t* clens,
+                     const int32_t* order, int cand_len, int nc, int32_t* out,
+                     cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const auto ctas = [&](long long warps) {
+    const long long per_cta = warps * (32 / S);
+    return (nc + per_cta - 1) / per_cta * nq;
+  };
+  int warps = kWarpsB;
+  while (warps > 1 && ctas(warps) < sms) warps /= 2;
+  const long long cand_blocks = ctas(warps) / nq;
+  const long long blocks = cand_blocks * nq;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const int cb = static_cast<int>(cand_blocks);
+  const int max_run = (words + S - 1) / S;
+#define SZ_TIER_B(R)                                                                        \
+  myers_tier_b<S, R, kRunes><<<grid, 32 * warps, 0, stream>>>(keys, key_offs, peq, words, qlens, \
+                                                              cands_t, clens, order, cand_len,  \
+                                                              nc, cb, out)
+  if (max_run <= 1) SZ_TIER_B(1);
+  else if constexpr (S == 32) SZ_TIER_B(2);
+  else if (max_run <= 2) SZ_TIER_B(2);
+  else if (max_run <= 4) SZ_TIER_B(4);
+  else SZ_TIER_B(8);
+#undef SZ_TIER_B
+  return cudaGetLastError();
 }
 
 template <bool kRunes>
 cudaError_t launch(const int32_t* keys, const int32_t* key_offs, const uint64_t* peq, int words,
                    const int32_t* qlens, int nq, const int32_t* cands_t, const int32_t* clens,
-                   int cand_len, int nc, int32_t* out, cudaStream_t stream) {
+                   const int32_t* order, int seg, int cand_len, int nc, int32_t* out,
+                   cudaStream_t stream) {
   if (nq <= 0 || nc <= 0) return cudaSuccess;
   if (words < 1 || words > 64 || cand_len < 0) return cudaErrorInvalidValue;
   if (words <= 4) {
@@ -269,18 +431,14 @@ cudaError_t launch(const int32_t* keys, const int32_t* key_offs, const uint64_t*
       case 3: myers_tier_a<3, kRunes><<<grid, kThreadsA, 0, stream>>>(keys, key_offs, peq, qlens, cands_t, clens, cand_len, nc, cb, out); break;
       default: myers_tier_a<4, kRunes><<<grid, kThreadsA, 0, stream>>>(keys, key_offs, peq, qlens, cands_t, clens, cand_len, nc, cb, out); break;
     }
-  } else {
-    const long long cand_blocks = (nc + kWarpsB - 1) / kWarpsB;
-    const long long blocks = cand_blocks * nq;
-    if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-    const dim3 grid(static_cast<unsigned>(blocks));
-    const int cb = static_cast<int>(cand_blocks);
-    if (words <= 32)
-      myers_tier_b<1, kRunes><<<grid, 32 * kWarpsB, 0, stream>>>(keys, key_offs, peq, words, qlens, cands_t, clens, cand_len, nc, cb, out);
-    else
-      myers_tier_b<2, kRunes><<<grid, 32 * kWarpsB, 0, stream>>>(keys, key_offs, peq, words, qlens, cands_t, clens, cand_len, nc, cb, out);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (order == nullptr) return cudaErrorInvalidValue;
+  switch (seg) {
+    case 8: return launch_b<8, kRunes>(keys, key_offs, peq, words, qlens, nq, cands_t, clens, order, cand_len, nc, out, stream);
+    case 32: return launch_b<32, kRunes>(keys, key_offs, peq, words, qlens, nq, cands_t, clens, order, cand_len, nc, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -290,13 +448,18 @@ cudaError_t launch(const int32_t* keys, const int32_t* key_offs, const uint64_t*
 //            query char 64 w + i equals c (built by the caller);
 //   qlens    [nq] int32 query lengths (<= 64 * words);
 //   cands_t  [cand_len][nc] int32 candidate chars, one candidate per column;
-//   clens    [nc] int32 candidate lengths (<= cand_len).
+//   clens    [nc] int32 candidate lengths (<= cand_len);
+//   order    [nc] int32, the candidates by length (tier B, words > 4, takes
+//            them in this order, 32 / seg a warp; tier A reads nothing of it);
+//   seg      tier B's lanes a candidate, 8 or 32 (ops/myers.py's
+//            tier_b_plan; tier A reads nothing of it).
 // Launches on `stream` without synchronising; returns the launch status.
 extern "C" cudaError_t sz_myers(const uint64_t* peq, int words, const int32_t* qlens,
                                 int nq, const int32_t* cands_t, const int32_t* clens,
-                                int cand_len, int nc, int32_t* out, cudaStream_t stream) {
-  return launch<false>(nullptr, nullptr, peq, words, qlens, nq, cands_t, clens, cand_len, nc,
-                       out, stream);
+                                const int32_t* order, int seg, int cand_len, int nc,
+                                int32_t* out, cudaStream_t stream) {
+  return launch<false>(nullptr, nullptr, peq, words, qlens, nq, cands_t, clens, order, seg,
+                       cand_len, nc, out, stream);
 }
 
 // The same over runes (any int32 values):
@@ -309,9 +472,10 @@ extern "C" cudaError_t sz_myers(const uint64_t* peq, int words, const int32_t* q
 extern "C" cudaError_t sz_myers_runes(const int32_t* keys, const int32_t* key_offs,
                                       const uint64_t* peq, int words, const int32_t* qlens,
                                       int nq, const int32_t* cands_t, const int32_t* clens,
-                                      int cand_len, int nc, int32_t* out, cudaStream_t stream) {
-  return launch<true>(keys, key_offs, peq, words, qlens, nq, cands_t, clens, cand_len, nc, out,
-                      stream);
+                                      const int32_t* order, int seg, int cand_len, int nc,
+                                      int32_t* out, cudaStream_t stream) {
+  return launch<true>(keys, key_offs, peq, words, qlens, nq, cands_t, clens, order, seg, cand_len,
+                      nc, out, stream);
 }
 
 extern "C" const char* sz_cuda_error_string(int code) {

@@ -1,6 +1,6 @@
 // Anti-diagonal DP scores of long pairs, hand-written for Hopper (sm_90a):
-// the flat tier (wavefront_tile) for every configuration, and below it the
-// band tier (wavefront_band) for unit-cost Levenshtein.
+// the band tier (wavefront_band) for unit-cost Levenshtein, and the flat
+// tier (wavefront_flat) for every configuration.
 //
 // The flat tier replaces the JAX package's Pallas kernel
 // stringzilla_tpu/ops/wavefront_pallas.py::_kernel: the exact int32 score of
@@ -22,52 +22,73 @@
 // outside the matrix are never computed, so the JAX kernel's masking
 // identity never reaches a result.
 //
-// What bounds it on this card. A cell is 5 (linear) to 10 (affine) dependent
-// int32 adds and min/max, 2 more when local; the chars and the frontiers are
-// O(m + n) bytes against O(m * n) cells. So it is bound by integer issue,
-// 132 SMs x 64 int32 lanes a clock, and, for one pair, by how many cells are
-// independent at a time: only one anti-diagonal is.
+// What bounds the flat tier on this card. A cell is 3 (linear) to 6
+// (affine) int32 issue slots with the DPX add-min/max fusing each add into
+// its min or max, plus the substitution (one shared-memory byte load with
+// classes, a compare and a select without) and, when local, the clamp and
+// the running best; the chars are O(m + n) bytes against O(m * n) cells. So
+// it is bound by integer issue, 132 SMs x 64 int32 lanes a clock, and, for
+// one pair, by its m + n anti-diagonals, one after the other: only the cells
+// of one anti-diagonal are independent.
 //
-// What the design does about it. The TPU kernel swept one anti-diagonal per
-// step over a (rows, 128) tile holding the whole diagonal in VMEM, streaming
-// b through a shift register and building class costs from 8 bit-planes.
-// Here the matrix is cut into tiles of kRows x kCols cells. Tiles on one
-// anti-diagonal of tiles are independent: one launch runs tile diagonal t of
-// every pair of the group, a warp (one CTA) per tile, so a 100,000-char
-// pair keeps up to 1563 warps busy. Inside a tile, lane i owns row i and
-// computes column s - i at step s: the cell above comes from lane i - 1 by
-// a shuffle (its result of the previous step), the cell to the left is the
-// lane's own last result, and the diagonal cell is the lane's previous
-// "above". No shared-memory round trip and no block barrier inside the
-// sweep. The tile's b chars and
-// top frontier sit in shared memory; the class table is stored per lane,
-// tab[b class][lane] = table[lane's a class][b class], so every read hits
-// the lane's own bank. Tiles hand on their bottom row (D, and J when affine)
-// through a per-pair row frontier with kCols + 1 entries per tile column,
-// and their right column (D, and I when affine) through a column frontier
-// with kRows + 1 entries per tile row; entry 0 of each is the tile's corner,
-// so no other tile of the same launch overwrites a value still to be read.
-// Local bests meet in out[pair] through one atomic min/max per tile.
-//
-// Later work: DPX fused add-min/max (__viaddmin_s32), several warps per CTA
-// pipelining a taller tile, and a persistent kernel instead of a launch per
-// tile diagonal.
+// What the design does about it. The TPU kernel swept one anti-diagonal a
+// step over a tile holding the whole diagonal in VMEM. The first Hopper
+// design cut the matrix into 32 x 64 tiles, a warp each, one launch a tile
+// diagonal: a launch's gap and tail, and a tile's frontier loads and stores,
+// every 2,048 cells. Here a pair's rows are cut into strips of H = 32 R
+// rows, R = 4 rows a lane (8 was slower on the long reads and the long
+// pair), as the host's plan lays them out (ops/wavefront.py flat_plan), and
+// one warp marches a strip across all n columns. The rows are the shorter
+// string's (the matrix of (b, a) has the same score with the class table
+// transposed), so a thin pair is one strip, not a chain of strips that each
+// wait for the one above to leave its first columns. Lane l holds rows r0 +
+// l R + q, q < R, and at step t computes the cell of row offset o = l R + q
+// at column t - o + 1: R independent cells of one anti-diagonal, in
+// registers. The cell above comes from the row above's value of the step
+// before (lane l - 1's last row through one __shfl_up_sync, and J the same
+// way when affine), the cell to the left is the row's own, the diagonal one
+// the row above's of two steps before; b's chars pass down the lanes as a
+// shift register, lane 0 taking them from a chunk of C steps read a chunk
+// ahead. Class costs come from a per-lane profile in shared memory: lane l
+// keeps table[class of its row q][c] for its R rows and the 32 classes c as
+// bytes, all in bank l, so each cell's cost is one conflict-free signed byte
+// load whose address the shift register carries (c * H + 4 l, plus the
+// warp's base; the row's byte is an immediate). A strip hands its bottom row
+// (D, and J when affine) to the strip below through device memory: one
+// 64-bit slot a column, value and the writer's strip number + 1 in one
+// relaxed store, no fence; the strip below reads C slots at once, a chunk
+// ahead of their use, and checks their tags with one vote. Each pair has two
+// such rows of slots, taken by strip parity: strip s + 2 overwrites column j
+// only after it computed its own bottom cell there, which needed strip s +
+// 1's, which had read strip s's, so no slot is overwritten before it is read
+// and no writer waits. Only strip 0 computes the boundary row; the left
+// boundary is the boundary function. Cells before column 1 and after column
+// n (the first and last H - 1 steps of a strip) keep their value through a
+// select, in chunks that hold any such cell; the other chunks run unmasked.
+// One launch a group of pairs: a persistent grid whose warps claim strips
+// in the host's order (strip-major across the group's pairs) from a counter
+// in device memory. The host sizes the grid from the strips, at most 3 CTAs
+// an SM (fewer than the occupancy API allows): warps that share a scheduler
+// slow one another's step, and a pair's chain of strips sets its time, so a
+// lone pair runs fastest with one warp a scheduler. A strip waits only on the
+// strip above, which a running warp claimed earlier, so the waits form no
+// cycle and need no residency guarantee. A wait backs off with __nanosleep
+// and is bounded: one that spins past ~8 s marks the group's status 3,
+// every other wait then gives up, and the host raises. Local bests meet in
+// out[pair] through one atomic min/max a strip; a global score is the last
+// strip's cell (m, n), which keeps its value past column n.
 
 #include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
-#include <vector>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 32;  // tile rows: one warp, a lane per row of a
-constexpr int kCols = 64;  // tile columns of b
 constexpr int kClasses = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRecord = 6;  // per pair: a_off, m, b_off, n, row and column frontier offsets
 
 struct Costs {
   int gap;       // linear: open_or_extend; affine: open
@@ -79,6 +100,14 @@ struct Costs {
 template <bool kMax>
 __device__ __forceinline__ int opt(int a, int b) {
   return kMax ? max(a, b) : min(a, b);
+}
+
+// opt(a + b, c) in one DPX instruction, then opt with 0 when local (for max
+// in the same instruction).
+template <bool kMax, bool kLocal>
+__device__ __forceinline__ int add_opt(int a, int b, int c) {
+  if (!kLocal) return kMax ? __viaddmax_s32(a, b, c) : __viaddmin_s32(a, b, c);
+  return kMax ? __viaddmax_s32_relu(a, b, c) : min(__viaddmin_s32(a, b, c), 0);
 }
 
 template <bool kLocal, bool kAffine>
@@ -96,130 +125,6 @@ __device__ __forceinline__ int gap_boundary(int k, const Costs& c) {
 __device__ __forceinline__ int clamp_class(int c) {
   return min(max(c, 0), kClasses - 1);
 }
-
-// One warp per tile (r, c) on tile diagonal `diag`: blockIdx.y is the pair
-// of the group, blockIdx.x the tile's place along the diagonal.
-template <bool kMax, bool kLocal, bool kAffine, bool kClass>
-__global__ void __launch_bounds__(kRows)
-wavefront_tile(const int32_t* __restrict__ chars, const long long* __restrict__ pairs,
-               int diag, const int32_t* __restrict__ table, Costs costs,
-               int32_t* __restrict__ scratch, int32_t* __restrict__ out) {
-  __shared__ int32_t tab[kClass ? kClasses * kRows : 1];  // tab[b class * kRows + lane]
-  __shared__ int32_t b_chars[kCols];
-  __shared__ int32_t top_d[kCols + 1];  // D of the row above the tile, corner first
-  __shared__ int32_t top_g[kAffine ? kCols + 1 : 1];  // J of that row
-
-  const long long* rec = pairs + static_cast<long long>(blockIdx.y) * kRecord;
-  const long long a_off = rec[0], b_off = rec[2];
-  const int m = static_cast<int>(rec[1]), n = static_cast<int>(rec[3]);
-  const int tile_rows = (m + kRows - 1) / kRows, tile_cols = (n + kCols - 1) / kCols;
-  const int r = max(0, diag - tile_cols + 1) + static_cast<int>(blockIdx.x);
-  const int c = diag - r;
-  if (r >= tile_rows || c < 0) return;  // this pair has fewer tiles on the diagonal
-
-  const int lane = threadIdx.x;
-  const int row0 = r * kRows, col0 = c * kCols;
-  const int rows = min(kRows, m - row0), cols = min(kCols, n - col0);
-  const int words = kAffine ? 2 : 1;
-  // Row frontier of tile column c: D of the row above, then J when affine.
-  int32_t* h_d = scratch + rec[4] + static_cast<long long>(c) * (kCols + 1) * words;
-  int32_t* h_g = h_d + (kCols + 1);
-  // Column frontier of tile row r: D of the column to the left, then I.
-  int32_t* v_d = scratch + rec[5] + static_cast<long long>(r) * (kRows + 1) * words;
-  int32_t* v_g = v_d + (kRows + 1);
-
-  // -- load: b chars, the top frontier, this lane's a char and left cells --
-  for (int k = lane; k < kCols; k += kRows) {
-    const int ch = k < cols ? chars[b_off + col0 + k] : 0;
-    b_chars[k] = kClass ? clamp_class(ch) : ch;
-  }
-  for (int k = lane; k <= cols; k += kRows) {
-    if (r == 0) {
-      top_d[k] = boundary<kLocal, kAffine>(col0 + k, costs);
-      if (kAffine) top_g[k] = gap_boundary<kLocal, kAffine>(col0 + k, costs);
-    } else {
-      top_d[k] = h_d[k];
-      if (kAffine) top_g[k] = h_g[k];
-    }
-  }
-  int a_char = lane < rows ? chars[a_off + row0 + lane] : 0;
-  if (kClass) {
-    a_char = clamp_class(a_char);
-    for (int k = 0; k < kClasses; ++k) tab[k * kRows + lane] = table[a_char * kClasses + k];
-  }
-  int diag_d, left_d, left_i = 0;  // D[i-1][col0], D[i][col0], I[i][col0]
-  if (c == 0) {
-    diag_d = boundary<kLocal, kAffine>(row0 + lane, costs);
-    left_d = boundary<kLocal, kAffine>(row0 + lane + 1, costs);
-    if (kAffine) left_i = gap_boundary<kLocal, kAffine>(row0 + lane + 1, costs);
-  } else {
-    diag_d = v_d[lane];
-    left_d = v_d[lane + 1];
-    if (kAffine) left_i = v_g[lane + 1];
-  }
-  __syncwarp();  // every frontier read is done before any write below
-
-  // The corners the next tiles read: D[row0 + rows][col0] starts the bottom
-  // row, D[row0][col0 + cols] the right column.
-  if (lane == rows - 1) h_d[0] = left_d;
-  if (lane == 0) v_d[0] = top_d[cols];
-
-  // -- sweep: lane i computes cell (row0 + 1 + i, col0 + 1 + s - i) at step s --
-  int cur_d = 0, cur_g = 0;  // this lane's newest D and J, read by lane + 1
-  int best = 0;
-  const int steps = rows + cols - 1;
-  for (int s = 0; s < steps; ++s) {
-    int up_d = __shfl_up_sync(kFull, cur_d, 1);
-    int up_g = kAffine ? __shfl_up_sync(kFull, cur_g, 1) : 0;
-    const int j = s - lane;
-    if (lane == 0 && j < cols) {
-      up_d = top_d[j + 1];
-      if (kAffine) up_g = top_g[j + 1];
-    }
-    if (lane < rows && j >= 0 && j < cols) {
-      const int b_char = b_chars[j];
-      const int sub = kClass ? tab[b_char * kRows + lane]
-                             : (a_char == b_char ? costs.match : costs.mismatch);
-      int d;
-      if (kAffine) {
-        left_i = opt<kMax>(left_d + costs.gap, left_i + costs.extend);
-        cur_g = opt<kMax>(up_d + costs.gap, up_g + costs.extend);
-        d = opt<kMax>(diag_d + sub, opt<kMax>(left_i, cur_g));
-      } else {
-        d = opt<kMax>(opt<kMax>(left_d + costs.gap, up_d + costs.gap), diag_d + sub);
-      }
-      if (kLocal) {
-        d = opt<kMax>(d, 0);
-        best = opt<kMax>(best, d);
-      }
-      cur_d = left_d = d;
-      diag_d = up_d;
-      if (lane == rows - 1) {
-        h_d[j + 1] = d;
-        if (kAffine) h_g[j + 1] = cur_g;
-      }
-    }
-  }
-
-  // -- hand-off: the right column, and the pair's score --
-  if (lane < rows) {
-    v_d[lane + 1] = left_d;
-    if (kAffine) v_g[lane + 1] = left_i;
-  }
-  const int pair = blockIdx.y;
-  if (kLocal) {
-#pragma unroll
-    for (int off = kRows / 2; off > 0; off /= 2)
-      best = opt<kMax>(best, __shfl_xor_sync(kFull, best, off));
-    if (lane == 0) {
-      if (kMax) atomicMax(out + pair, best);
-      else atomicMin(out + pair, best);
-    }
-  } else if (r == tile_rows - 1 && c == tile_cols - 1 && lane == rows - 1) {
-    out[pair] = left_d;  // D[m][n]
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Band tier: the exact unit-cost Levenshtein distance of long pairs by
@@ -682,122 +587,292 @@ __global__ void __launch_bounds__(kBandWarps * 32) wavefront_band(BandArgs args)
   }
 }
 
-template <bool kMax, bool kLocal, bool kAffine, bool kClass>
-void launch(dim3 grid, cudaStream_t stream, const int32_t* chars, const long long* pairs,
-            int diag, const int32_t* table, Costs costs, int32_t* scratch, int32_t* out) {
-  wavefront_tile<kMax, kLocal, kAffine, kClass><<<grid, kRows, 0, stream>>>(
-      chars, pairs, diag, table, costs, scratch, out);
-}
 
-using Launcher = void (*)(dim3, cudaStream_t, const int32_t*, const long long*, int,
-                          const int32_t*, Costs, int32_t*, int32_t*);
+// ---------------------------------------------------------------------------
+// Flat tier: strips of 32 R rows a warp, claimed in order by a persistent
+// grid (the design is in the note at the head of this file).
 
-// Indexed by max * 8 + local * 4 + affine * 2 + classes.
-constexpr Launcher kLaunchers[16] = {
-    launch<false, false, false, false>, launch<false, false, false, true>,
-    launch<false, false, true, false>,  launch<false, false, true, true>,
-    launch<false, true, false, false>,  launch<false, true, false, true>,
-    launch<false, true, true, false>,   launch<false, true, true, true>,
-    launch<true, false, false, false>,  launch<true, false, false, true>,
-    launch<true, false, true, false>,   launch<true, false, true, true>,
-    launch<true, true, false, false>,   launch<true, true, false, true>,
-    launch<true, true, true, false>,    launch<true, true, true, true>,
+constexpr int kFlatRows = 4;     // rows a lane R: a strip is a warp of 32 R rows
+constexpr int kFlatWarps = 4;    // warps a CTA
+constexpr int kFlatChunk = 16;   // steps a strip reads from the strip above at once
+constexpr int kFlatRecord = 6;   // per pair: a_off, m, b_off, n, its slots' offset, transposed
+constexpr int kFlatGroup = 6;    // per group: first pair, pairs, first claim, claims, CTAs, slots
+constexpr long long kFlatWaitCycles = 1LL << 34;  // ~8.7 s at 1.98 GHz
+
+struct FlatArgs {
+  const int32_t* chars;
+  const long long* pairs;  // the group's [pairs][kFlatRecord]
+  const int2* claims;      // the group's strips in claim order: (pair of the group, strip)
+  const int32_t* table;    // [32][32] class costs (classes only)
+  long long* slots;        // per pair with 2+ strips: 2 parities x (n + 1) D slots, then as many J
+  int* header;             // [0] status (3: a wait stalled), [1] strips claimed
+  int32_t* out;            // the group's scores
+  Costs costs;
+  int n_claims;
 };
 
-constexpr int kMaxGroup = 65535;  // pairs of one group: the grid's y extent
+constexpr int kFlatProfileBytes = kClasses * 32 * kFlatRows;  // a warp's: 32 classes x 32 R rows
 
-long long tiles_of(long long len, int tile) { return (len + tile - 1) / tile; }
-
-// Words of a pair's row frontier (kCols + 1 per tile column) and column
-// frontier (kRows + 1 per tile row), twice each when affine.
-long long row_words(bool affine, long long n) {
-  return tiles_of(n, kCols) * (kCols + 1) * (affine ? 2 : 1);
+// One more round of a strip's bounded wait that began at `start`: sleeps a
+// little longer each round (up to 1 us), looks at the group's status once
+// every kQuietCycles, and marks it stalled past kFlatWaitCycles. False once
+// the wait should give up. The clock is the same in every lane.
+__device__ __forceinline__ bool flat_waiting(long long& start, long long& looked, unsigned& nap,
+                                             int* status) {
+  const long long now = clock64();
+  if (start < 0) {
+    start = looked = now;
+    return true;
+  }
+  __nanosleep(nap);
+  nap = min(2 * nap + 32, 1024u);
+  if (now - looked < kQuietCycles) return true;
+  looked = now;
+  int gone = 0;
+  if ((threadIdx.x & 31) == 0) {
+    if (now - start > kFlatWaitCycles) atomicExch(status, kStalled);
+    gone = *reinterpret_cast<volatile int*>(status) != 0;
+  }
+  return __shfl_sync(kFull, gone, 0) == 0;
 }
-long long col_words(bool affine, long long m) {
-  return tiles_of(m, kRows) * (kRows + 1) * (affine ? 2 : 1);
+
+__device__ __forceinline__ long long flat_slot(unsigned tag, int value) {
+  return (static_cast<long long>(tag) << 32) | static_cast<unsigned>(value);
+}
+
+// Strip s of pair `pair`: rows r0 = 32 R s + 1 .. min(m, r0 + 32 R - 1)
+// through every column. `prof` is the shared memory of the CTA, `warp_base`
+// the byte offset of this warp's profile in it. False when a wait stalled.
+template <bool kMax, bool kLocal, bool kAffine, bool kClass>
+__device__ bool flat_strip(const FlatArgs& args, int pair, int s, unsigned char* prof,
+                           int warp_base) {
+  constexpr int R = kFlatRows, H = 32 * R, C = kFlatChunk;
+  static_assert(R % 4 == 0, "a lane's profile packs its rows four to a word");
+  const Costs c = args.costs;
+  const long long* rec = args.pairs + static_cast<long long>(pair) * kFlatRecord;
+  const int32_t* a = args.chars + rec[0];
+  const int32_t* b = args.chars + rec[2];
+  const int m = static_cast<int>(rec[1]), n = static_cast<int>(rec[3]);
+  const bool transposed = rec[5] != 0;  // a is the pair's second string: costs are table[b][a]
+  const int lane = threadIdx.x & 31;
+  const int r0 = s * H + 1;
+  const int rows = min(H, m - r0 + 1);
+  const bool last = r0 + H > m;
+  const int base = lane * R;   // this lane's first row offset
+  const int rq = rows - base;  // its rows q < rq lie in the matrix
+  const long long stride = (n + 1LL) * (kAffine ? 2 : 1);
+  long long* const up = args.slots + rec[4] + ((s + 1) & 1) * stride;  // strip s - 1's row
+  long long* const down = args.slots + rec[4] + (s & 1) * stride;
+  const unsigned tag_in = s, tag_out = s + 1;
+  const signed char* const cost = reinterpret_cast<const signed char*>(prof);
+
+  // The shift register's value of b[j] entering lane l: the char, or with
+  // classes the byte offset of its class's costs in lane l's profile.
+  const auto b_value = [&](int j, int l) {
+    const int ch = j >= 0 && j < n ? __ldg(b + j) : kNoChar;
+    return kClass ? warp_base + clamp_class(ch) * H + 4 * l : ch;
+  };
+  int bc[R], ac[kClass ? 1 : R], D1[R], D2[R], I[kAffine ? R : 1], J[kAffine ? R : 1];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = r0 + base + q;
+    D1[q] = D2[q] = boundary<kLocal, kAffine>(i, c);
+    if constexpr (kAffine) I[q] = J[q] = gap_boundary<kLocal, kAffine>(i, c);
+    if constexpr (!kClass) ac[q] = q < rq ? __ldg(a + i - 1) : kNoChar;
+    bc[q] = b_value(-(base + q), lane);
+  }
+  if constexpr (kClass) {  // lane l's profile: word (k R / 4 + g) * 32 + l, rows 4g..4g+3, class k
+    int cls[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) cls[q] = q < rq ? clamp_class(__ldg(a + r0 + base + q - 1)) : 0;
+    unsigned* words = reinterpret_cast<unsigned*>(prof + warp_base);
+    for (int k = 0; k < kClasses; ++k) {
+#pragma unroll
+      for (int g = 0; g < R / 4; ++g) {
+        unsigned w = 0;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int at = transposed ? k * kClasses + cls[4 * g + x] : cls[4 * g + x] * kClasses + k;
+          w |= (static_cast<unsigned>(__ldg(args.table + at)) & 0xffu) << (8 * x);
+        }
+        words[(k * (R / 4) + g) * 32 + lane] = w;
+      }
+    }
+  }
+  int x2 = boundary<kLocal, kAffine>(r0 + base - 1, c);  // the first row's diagonal at column 1
+  int best = 0;
+
+  // Lane u < C of the chunk at step tau holds, for step tau + u, the cells
+  // above row r0 at column tau + u + 1 (D, and J), and the char of b
+  // entering row r0 after step tau + u.
+  const bool reads = s > 0;
+  long long wd = 0, wj = 0;
+  int b_next = 0;
+  const auto prefetch = [&](int tau) {
+    if (lane < C) {
+      const int col = tau + lane + 1;
+      b_next = b_value(col, 0);
+      if (reads && col <= n) {
+        wd = ring_load(up + col);
+        if constexpr (kAffine) wj = ring_load(up + n + 1 + col);
+      }
+    }
+  };
+  prefetch(0);
+  const int steps = (n + rows - 1 + C - 1) / C * C;  // cell (r0 + rows - 1, n) is step n + rows - 2
+  const bool sends = !last && lane == 31;            // the bottom row's lane
+
+  for (int tau = 0; tau < steps; tau += C) {
+    const int col = tau + lane + 1;
+    int above_d, above_j = 0;
+    if (reads) {
+      const bool need = lane < C && col <= n;
+      long long start = -1, looked = 0;
+      unsigned nap = 0;
+      const auto arrived = [&] {
+        return static_cast<unsigned>(wd >> 32) == tag_in &&
+               (!kAffine || static_cast<unsigned>(wj >> 32) == tag_in);
+      };
+      while (!__all_sync(kFull, !need || arrived())) {
+        if (!flat_waiting(start, looked, nap, args.header)) return false;
+        if (need) {
+          wd = ring_load(up + col);
+          if constexpr (kAffine) wj = ring_load(up + n + 1 + col);
+        }
+      }
+      above_d = static_cast<int>(wd);
+      above_j = static_cast<int>(wj);
+    } else {  // row 0
+      above_d = boundary<kLocal, kAffine>(col, c);
+      if constexpr (kAffine) above_j = gap_boundary<kLocal, kAffine>(col, c);
+    }
+    const int b_in = b_next;
+    if (tau + C < steps) prefetch(tau + C);
+    long long* const out = down + (tau - H + 2);  // the bottom row's column at step tau
+
+    // kInside: every cell of the chunk lies in the matrix (every row has
+    // begun and none has passed column n), so none is masked.
+    const auto chunk = [&](auto inside) {
+      constexpr bool kInside = decltype(inside)::value;
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const int from_up = __shfl_sync(kFull, above_d, u);
+        const int from_lane = __shfl_up_sync(kFull, D1[R - 1], 1);
+        const int x1 = lane == 0 ? from_up : from_lane;
+        int y1 = 0;
+        if constexpr (kAffine) {
+          const int j_up = __shfl_sync(kFull, above_j, u);
+          const int j_lane = __shfl_up_sync(kFull, J[R - 1], 1);
+          y1 = lane == 0 ? j_up : j_lane;
+        }
+        const int tl = tau + u - base;  // step minus the lane's first row offset
+#pragma unroll
+        for (int q = R - 1; q >= 0; --q) {
+          const int left = D1[q];
+          const int upper = q > 0 ? D1[q - 1] : x1;
+          const int diag = q > 0 ? D2[q - 1] : x2;
+          int sub;
+          if constexpr (kClass)
+            sub = cost[bc[q] + (q / 4) * 128 + (q % 4)];
+          else
+            sub = ac[q] == bc[q] ? c.match : c.mismatch;
+          int v, i_new = 0, j_new = 0;
+          if constexpr (kAffine) {
+            const int up_j = q > 0 ? J[q - 1] : y1;
+            i_new = add_opt<kMax, false>(left, c.gap, I[q] + c.extend);
+            j_new = add_opt<kMax, false>(upper, c.gap, up_j + c.extend);
+            v = add_opt<kMax, kLocal>(diag, sub, opt<kMax>(i_new, j_new));
+          } else {
+            v = add_opt<kMax, kLocal>(opt<kMax>(left, upper), c.gap, diag + sub);
+          }
+          if (!kInside) {  // a row before column 1 or past column n keeps its value
+            const bool live = q < rq && static_cast<unsigned>(tl - q) < static_cast<unsigned>(n);
+            v = live ? v : left;
+            if constexpr (kAffine) {
+              i_new = live ? i_new : I[q];
+              j_new = live ? j_new : J[q];
+            }
+          }
+          if (kLocal) best = opt<kMax>(best, v);
+          D2[q] = left;
+          D1[q] = v;
+          if constexpr (kAffine) {
+            I[q] = i_new;
+            J[q] = j_new;
+          }
+        }
+        x2 = x1;
+        const int b_up = __shfl_sync(kFull, b_in, u);
+        const int b_lane = __shfl_up_sync(kFull, bc[R - 1], 1);
+#pragma unroll
+        for (int q = R - 1; q > 0; --q) bc[q] = bc[q - 1];
+        bc[0] = lane == 0 ? b_up : b_lane + (kClass ? 4 : 0);
+        // the bottom row's cell of this step, column tau + u - H + 2
+        const bool on =
+            sends && (kInside || static_cast<unsigned>(tl - (R - 1)) < static_cast<unsigned>(n));
+        ring_store(out + u, flat_slot(tag_out, D1[R - 1]), on);
+        if constexpr (kAffine) ring_store(out + n + 1 + u, flat_slot(tag_out, J[R - 1]), on);
+      }
+    };
+    if (rows == H && tau >= H - 1 && tau + C <= n)
+      chunk(std::true_type{});
+    else
+      chunk(std::false_type{});
+  }
+
+  if (kLocal) {
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) best = opt<kMax>(best, __shfl_xor_sync(kFull, best, off));
+    if (lane == 0) {
+      if (kMax) atomicMax(args.out + pair, best);
+      else atomicMin(args.out + pair, best);
+    }
+  } else if (last && lane == (m - r0) / R) {  // cell (m, n), kept since column n
+    const int row = (m - r0) % R;
+    int d = D1[0];
+#pragma unroll
+    for (int q = 1; q < R; ++q) d = q == row ? D1[q] : d;
+    args.out[pair] = d;
+  }
+  return true;
+}
+
+template <bool kMax, bool kLocal, bool kAffine, bool kClass>
+__global__ void __launch_bounds__(kFlatWarps * 32) wavefront_flat(FlatArgs args) {
+  extern __shared__ __align__(16) unsigned char flat_shared[];  // the warps' profiles (classes)
+  const int warp_base = kClass ? (threadIdx.x >> 5) * kFlatProfileBytes : 0;
+  for (;;) {
+    int k = 0;
+    if ((threadIdx.x & 31) == 0) k = atomicAdd(args.header + 1, 1);
+    k = __shfl_sync(kFull, k, 0);
+    if (k >= args.n_claims) return;
+    const int2 strip = args.claims[k];
+    if (!flat_strip<kMax, kLocal, kAffine, kClass>(args, strip.x, strip.y, flat_shared,
+                                                    warp_base))
+      return;
+  }
+}
+
+#define SZ_FLAT(k)           \
+  reinterpret_cast<const void*>( \
+      wavefront_flat<((k) & 8) != 0, ((k) & 4) != 0, ((k) & 2) != 0, ((k) & 1) != 0>)
+
+// The flat kernel of `config` (max * 8 + local * 4 + affine * 2 + classes),
+// or null.
+const void* flat_kernel(int config) {
+  static const void* const kernels[16] = {
+      SZ_FLAT(0),  SZ_FLAT(1),  SZ_FLAT(2),  SZ_FLAT(3),  SZ_FLAT(4),  SZ_FLAT(5),
+      SZ_FLAT(6),  SZ_FLAT(7),  SZ_FLAT(8),  SZ_FLAT(9),  SZ_FLAT(10), SZ_FLAT(11),
+      SZ_FLAT(12), SZ_FLAT(13), SZ_FLAT(14), SZ_FLAT(15)};
+  return config >= 0 && config < 16 ? kernels[config] : nullptr;
+}
+#undef SZ_FLAT
+
+size_t flat_shared_bytes(int config) {
+  return (config & 1) ? static_cast<size_t>(kFlatWarps) * kFlatProfileBytes : 0;
 }
 
 }  // namespace
-
-// int32 scratch words that sz_wavefront needs for pairs[n_pairs][4] (a_off,
-// m, b_off, n, on the host): returns the sum, and the most one pair needs in
-// *largest. A scratch of at least *largest words lets every call run.
-extern "C" long long sz_wavefront_scratch_words(int affine, const long long* pairs, int n_pairs,
-                                                long long* largest) {
-  long long total = 0;
-  *largest = 0;
-  for (int p = 0; p < n_pairs; ++p) {
-    const long long w = row_words(affine, pairs[4 * p + 3]) + col_words(affine, pairs[4 * p + 1]);
-    total += w;
-    *largest = std::max(*largest, w);
-  }
-  return total;
-}
-
-// Flat-tier scores of n_pairs pairs into out[n_pairs] (int32).
-//   chars    int32 chars (class ids when classes != 0) of every pair;
-//   pairs    [n_pairs][4] int64 on the host: a_off, m, b_off, n (m, n >= 1);
-//   records  [n_pairs][6] int64 on the device, filled here;
-//   table    [32][32] int32 class costs (read only when classes != 0);
-//   scratch  scratch_words int32 frontier words, no initialisation needed;
-//   out      must hold 0 for local scores; global ones are written.
-// Consecutive pairs whose frontiers fit the scratch form a group; each group
-// runs one launch per tile diagonal, max over its pairs of (tile rows + tile
-// columns - 1), all added to *launches. Launches on `stream` without
-// synchronising; returns the first failing status.
-extern "C" cudaError_t sz_wavefront(int objective_max, int local, int affine, int classes,
-                                    int gap, int extend, int match, int mismatch,
-                                    const int32_t* chars, const long long* pairs, int n_pairs,
-                                    long long* records, const int32_t* table, int32_t* scratch,
-                                    long long scratch_words, int32_t* out, long long* launches,
-                                    cudaStream_t stream) {
-  if (n_pairs <= 0) return cudaSuccess;
-  if (classes && table == nullptr) return cudaErrorInvalidValue;
-  const Costs costs{gap, extend, match, mismatch};
-  const Launcher run = kLaunchers[(objective_max ? 8 : 0) + (local ? 4 : 0) +
-                                  (affine ? 2 : 0) + (classes ? 1 : 0)];
-  // Each record: a_off, m, b_off, n, then where the pair's row and column
-  // frontiers start in the scratch. The host copy outlives every group's
-  // upload (a pageable copy is staged before cudaMemcpyAsync returns).
-  std::vector<long long> rec(static_cast<size_t>(n_pairs) * kRecord);
-  int begin = 0;
-  while (begin < n_pairs) {
-    int end = begin, diags = 0;
-    long long words = 0;
-    while (end < n_pairs && end - begin < kMaxGroup) {
-      const long long* p = pairs + 4LL * end;
-      if (p[1] < 1 || p[3] < 1) return cudaErrorInvalidValue;
-      const long long h = row_words(affine, p[3]), w = h + col_words(affine, p[1]);
-      if (w > scratch_words) return cudaErrorInvalidValue;
-      if (end > begin && words + w > scratch_words) break;
-      long long* r = rec.data() + static_cast<size_t>(end) * kRecord;
-      r[0] = p[0], r[1] = p[1], r[2] = p[2], r[3] = p[3], r[4] = words, r[5] = words + h;
-      words += w;
-      diags = std::max(diags, static_cast<int>(tiles_of(p[1], kRows) + tiles_of(p[3], kCols) - 1));
-      ++end;
-    }
-    cudaError_t err = cudaMemcpyAsync(records + static_cast<size_t>(begin) * kRecord,
-                                      rec.data() + static_cast<size_t>(begin) * kRecord,
-                                      sizeof(long long) * kRecord * (end - begin),
-                                      cudaMemcpyHostToDevice, stream);
-    if (err != cudaSuccess) return err;
-    for (int t = 0; t < diags; ++t) {
-      long long width = 1;  // the most tiles any pair of the group has on diagonal t
-      for (int q = begin; q < end; ++q) {
-        const long long tr = tiles_of(pairs[4LL * q + 1], kRows);
-        const long long tc = tiles_of(pairs[4LL * q + 3], kCols);
-        width = std::max(width, std::min<long long>(t, tr - 1) - std::max<long long>(0, t - tc + 1) + 1);
-      }
-      run(dim3(static_cast<unsigned>(width), static_cast<unsigned>(end - begin)), stream, chars,
-          records + static_cast<size_t>(begin) * kRecord, t, table, costs, scratch, out + begin);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      ++*launches;
-    }
-    begin = end;
-  }
-  return cudaSuccess;
-}
 
 // CTAs (of 4 warps) of the band kernel that an SM holds at once.
 extern "C" cudaError_t sz_wavefront_band_occupancy(int* ctas_per_sm) {
@@ -857,4 +932,85 @@ extern "C" cudaError_t sz_wavefront_band(const int32_t* chars, const long long* 
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess) ++*launches;
   return err;
+}
+
+// CTAs (of 4 warps) of the flat kernel of `config` (max * 8 + local * 4 +
+// affine * 2 + classes) that an SM holds at once.
+extern "C" cudaError_t sz_wavefront_flat_occupancy(int config, int* ctas_per_sm) {
+  const void* fn = flat_kernel(config);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kFlatWarps * 32,
+                                                       flat_shared_bytes(config));
+}
+
+// Flat-tier scores of the pairs of n_groups groups, one launch a group,
+// each added to *launches.
+//   config   max * 8 + local * 4 + affine * 2 + classes (a strip is a warp
+//            of 32 kFlatRows rows);
+//   chars    int32 chars (class ids when classes) of every pair;
+//   pairs    [n_pairs][6] int64 on the device: a_off, m, b_off, n (m, n >= 1;
+//            a's m chars are the rows), the offset in int64 words of the
+//            pair's slots within its group's part of `handoff` (2 (n + 1)
+//            words, twice when affine; only pairs of 2+ strips have slots),
+//            and 1 when a is the pair's second string (its class costs are
+//            then table[b class][a class]), else 0;
+//   claims   [n_claims][2] int32 on the device: each group's strips in the
+//            order its warps claim them, (pair within the group, strip),
+//            strip s - 1 of a pair before strip s;
+//   table    [32][32] int32 class costs (read only with classes);
+//   groups   [n_groups][6] int64 on the host, from ops/wavefront.py
+//            flat_plan: first pair, pairs, first claim, claims, CTAs, slot
+//            words;
+//   handoff  8 bytes a group (its status and claim counter), then the
+//            largest group's slot words, zeroed here (the status after the
+//            last launch says 3 where a wait stalled: the host raises);
+//   out      [n_pairs] int32: must hold 0 for local scores; global ones are
+//            written.
+// Launches on `stream` without synchronising; returns the first failing
+// status.
+extern "C" cudaError_t sz_wavefront_flat(int config, int gap, int extend,
+                                         int match, int mismatch, const int32_t* chars,
+                                         const long long* pairs, const int32_t* claims,
+                                         const int32_t* table, const long long* groups,
+                                         int n_groups, void* handoff, long long handoff_bytes,
+                                         int32_t* out, long long* launches, cudaStream_t stream) {
+  const void* fn = flat_kernel(config);
+  if (fn == nullptr || n_groups < 0 || ((config & 1) && table == nullptr))
+    return cudaErrorInvalidValue;
+  if (n_groups == 0) return cudaSuccess;
+  const long long header = 8LL * n_groups;
+  if (handoff_bytes < header) return cudaErrorInvalidValue;
+  const size_t shared = flat_shared_bytes(config);
+  char* base = static_cast<char*>(handoff);
+  cudaError_t err = cudaMemsetAsync(base, 0, static_cast<size_t>(header), stream);
+  if (err != cudaSuccess) return err;
+  for (int g = 0; g < n_groups; ++g) {
+    const long long* grp = groups + static_cast<long long>(kFlatGroup) * g;
+    const long long first_pair = grp[0], first_claim = grp[2], n_claims = grp[3];
+    const long long ctas = grp[4], slot_words = grp[5];
+    if (first_pair < 0 || grp[1] < 1 || first_claim < 0 || n_claims < 1 || n_claims > INT_MAX ||
+        ctas < 1 || ctas > INT_MAX || slot_words < 0 || header + 8 * slot_words > handoff_bytes)
+      return cudaErrorInvalidValue;
+    long long* slots = reinterpret_cast<long long*>(base + header);
+    if (slot_words > 0) {
+      err = cudaMemsetAsync(slots, 0, static_cast<size_t>(8 * slot_words), stream);
+      if (err != cudaSuccess) return err;
+    }
+    FlatArgs args{chars,
+                  pairs + first_pair * kFlatRecord,
+                  reinterpret_cast<const int2*>(claims) + first_claim,
+                  table,
+                  slots,
+                  reinterpret_cast<int*>(base) + 2 * g,
+                  out + first_pair,
+                  Costs{gap, extend, match, mismatch},
+                  static_cast<int>(n_claims)};
+    void* params[] = {&args};
+    err = cudaLaunchKernel(fn, dim3(static_cast<unsigned>(ctas)), dim3(kFlatWarps * 32), params,
+                           shared, stream);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launches;
+  }
+  return cudaSuccess;
 }

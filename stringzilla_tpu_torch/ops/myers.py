@@ -45,7 +45,8 @@ import torch
 
 from ..utils import cuda_build
 
-__all__ = ["myers", "myers_reference", "KERNEL_LAUNCHES", "MAX_ROWS"]
+__all__ = ["myers", "myers_reference", "tier_b_plan", "KERNEL_LAUNCHES", "MAX_ROWS",
+           "TIER_B_SEGMENTS", "TIER_B_WIDEN_BELOW"]
 
 MAX_ROWS = 4096  # longer queries wait for the wavefront tier
 _TIER_A_WORDS = 4  # csrc/myers.cu keeps up to 4 words per thread in registers
@@ -63,6 +64,26 @@ _LOW = [(1 << k) - 1 for k in range(64)] + [-1]
 def words_of(rows: int) -> int:
     """64-bit words a query block of ``rows`` chars occupies."""
     return max(1, -(-rows // 64))
+
+
+# csrc/myers.cu's tier B: lanes a candidate (32 / S candidates a warp), and
+# the warps an SM of an 8-lane launch below which it takes 32 lanes, for
+# blocks of at most 8 words (24 lanes of 32 then idle) and of more
+# (tools/tier_b_probe.py; PERF.md).
+TIER_B_SEGMENTS = (8, 32)
+TIER_B_WIDEN_BELOW = (2, 15)
+
+
+def tier_b_plan(words: int, nq: int, nc: int, sms: int) -> int:
+    """Lanes a candidate that ``csrc/myers.cu``'s tier B takes for a block
+    of ``words`` words, ``nq`` queries and ``nc`` candidates on a card of
+    ``sms`` SMs: 8 (the fewest idle lanes and ballots a word), or 32 (a
+    warp a candidate, each lane's run of words 4 times shorter) where 8
+    would give the launch, ``nq * ceil(nc / 4)`` warps, fewer than
+    ``TIER_B_WIDEN_BELOW`` warps an SM."""
+    narrow, wide = TIER_B_SEGMENTS
+    warps = nq * -(-nc // (32 // narrow))
+    return wide if warps < TIER_B_WIDEN_BELOW[words > narrow] * sms else narrow
 
 
 def _check(q_t, qlens, cands_t, clens, alphabet):
@@ -234,11 +255,17 @@ def myers(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
     if nq == 0 or nc == 0:
         return out
     words = words_of(rows)
+    tier_b = words > _TIER_A_WORDS
+    # tier B takes the candidates by length, so those of a warp end together
+    order = torch.argsort(clens.view(-1)).to(torch.int32) if tier_b else None
+    seg = (tier_b_plan(words, nq, nc, torch.cuda.get_device_properties(q_t.device)
+                       .multi_processor_count) if tier_b else 0)
     lib = cuda_build.load()
     with torch.cuda.device(q_t.device):
         stream = torch.cuda.current_stream(q_t.device).cuda_stream
         tail = (words, qlens.data_ptr(), nq, cands_t.data_ptr(), clens.data_ptr(),
-                cand_len, nc, out.data_ptr(), stream)
+                None if order is None else order.data_ptr(), seg, cand_len, nc,
+                out.data_ptr(), stream)
         if alphabet is None:
             keys, key_offs, peq = _rune_peq(q_t, qlens, words)
             name = "sz_myers_runes"
@@ -251,6 +278,6 @@ def myers(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.sz_cuda_error_string(err).decode()} ({err})")
-    tier = "myers_tier_a" if words <= _TIER_A_WORDS else "myers_tier_b"
+    tier = "myers_tier_b" if tier_b else "myers_tier_a"
     KERNEL_LAUNCHES[tier if alphabet is not None else tier + "_runes"] += 1
     return out

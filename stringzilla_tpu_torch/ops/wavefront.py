@@ -40,6 +40,9 @@ Entry points:
     band_plan(pairs, sms, warps_per_sm) -> BandPlan: how a band launch
         spreads each pair's strips over a circle of warps in CTA groups
     band_card(device) -> (SMs, warps of the band kernel an SM holds)
+    flat_plan(pairs, affine, sms, warps_per_sm) -> FlatPlan: how a flat
+        launch cuts each pair's rows into strips and the batch into groups
+    flat_card(device, config) -> (SMs, warps of the flat kernel an SM holds)
 
 The batched entries take pairs whose chars lie in one int32 tensor (offsets
 and lengths are host integer arrays). On CUDA tensors they run the
@@ -86,8 +89,8 @@ __all__ = ["wavefront_score", "wavefront_batch", "wavefront_reference",
            "levenshtein_long_pair", "levenshtein_batch", "band_batch",
            "band_reference", "config_costs", "wavefront_score_mim",
            "sweep_frontier", "stage_batch", "stage_reference", "stage_plan", "ladder",
-           "initial_state", "band_plan", "band_warps", "band_card", "MAX_FLAT_CELLS", "BAND_KMAX",
-           "KERNEL_LAUNCHES", "SCRATCH_CAP_BYTES"]
+           "initial_state", "band_plan", "band_warps", "band_card", "flat_plan", "flat_card",
+           "MAX_FLAT_CELLS", "BAND_KMAX", "KERNEL_LAUNCHES", "SCRATCH_CAP_BYTES"]
 
 BIG = 1 << 28  # the JAX kernel's identity; masked cells take it
 # Diagonal cells of one pair, max(m + 1, n): the JAX kernel's VMEM bound,
@@ -99,12 +102,12 @@ BAND_KMAX = 2047
 _CLASSES = 32
 
 # Launches of the CUDA kernels, counted from what the C side launched: one
-# per tile diagonal of each group of pairs (flat), one per call (band), one
-# per ladder stage of up to two sweeps (stage).
+# per group of pairs (flat), one per call (band), one per ladder stage of up
+# to two sweeps (stage).
 KERNEL_LAUNCHES = {"wavefront_flat": 0, "wavefront_band": 0, "wavefront_stage": 0}
 
-# Frontier buffers of one group of pairs; a call whose pairs need more is
-# split into several groups, each its own run of launches.
+# Hand-off slots of one group of pairs in the flat kernel; a call whose
+# pairs need more is split into several groups, each its own launch.
 SCRATCH_CAP_BYTES = 256 << 20
 
 
@@ -214,31 +217,166 @@ def _score(chars, a_off, a_len, b_off, b_len, match, mismatch, gap, objective,
     return result
 
 
+# The flat kernel's plan: rows a lane it is built for (a strip is a warp of
+# 32 * R rows; R = 8 was slower on the long reads and the long pair once
+# pairs ran along their shorter string), warps a CTA, steps a strip reads
+# from the strip above at once.
+FLAT_ROWS = 4
+FLAT_WARPS = 4
+FLAT_CHUNK = 16
+# The most warps a scheduler of an SM runs at once (CTAs an SM, at 4 warps
+# a CTA): a strip's step is a short chain of dependent cells, and warps
+# sharing a scheduler slow one another's chains. One warp a scheduler is
+# fastest for a lone pair, whose chain of strips sets its time; three where
+# many pairs' strips run side by side (tools/flat_grid_probe.py; PERF.md).
+FLAT_SHARE = 3
+_FLAT_HEADER_BYTES = 8  # a group's status and claim counter
+
+
+class FlatGroup(NamedTuple):
+    """One launch of a ``FlatPlan``: pairs ``[first_pair, first_pair +
+    pairs)`` (the plan's order), their strips ``[first_claim, first_claim +
+    claims)`` of ``FlatPlan.claims``, a grid of ``ctas`` CTAs, and
+    ``slot_words`` int64 hand-off slots, two rows of ``n + 1`` (four when
+    affine) for each pair of two or more strips."""
+    first_pair: int
+    pairs: int
+    first_claim: int
+    claims: int
+    ctas: int
+    slot_words: int
+
+
+class FlatPlan(NamedTuple):
+    """How ``csrc/wavefront.cu``'s flat kernel runs a batch: at most
+    ``ctas_per_sm`` CTAs of ``FLAT_WARPS`` warps an SM (a strip is a warp of
+    ``32 * FLAT_ROWS`` rows); of each pair whether it runs ``transposed``
+    (its rows the second string's, when that is the shorter), its ``strips``
+    and its ``slot_offsets`` (int64 words within its group's slots);
+    ``claims`` (an ``(n, 2)`` int32 array: each group's strips in the order
+    its warps claim them, ``(pair within the group, strip)``, strip-major
+    across the group's pairs), one ``FlatGroup`` a launch, and the hand-off
+    buffer's ``handoff_bytes``: 8 a group, then the largest group's
+    slots."""
+    ctas_per_sm: int
+    transposed: tuple
+    strips: tuple
+    slot_offsets: tuple
+    claims: np.ndarray
+    groups: tuple
+    handoff_bytes: int
+
+    def record(self) -> np.ndarray:
+        """The groups as ``sz_wavefront_flat`` reads them."""
+        return np.array([list(g) for g in self.groups], dtype=np.int64).reshape(-1, 6)
+
+
+def flat_plan(pairs, affine: bool, sms: int, warps_per_sm: int) -> FlatPlan:
+    """The plan of a flat launch over ``pairs`` ``[(m, n)]`` (m, n >= 1) on
+    a card of ``sms`` SMs holding ``warps_per_sm`` warps of the kernel. A
+    pair with ``m > n`` runs transposed (the score is the same with the
+    class table transposed), so its rows are its shorter string's: fewer
+    strips, each longer. A pair takes ``ceil(min(m, n) / (32 FLAT_ROWS))``
+    strips, with slots for its ``max(m, n) + 1`` columns; consecutive pairs
+    form a group while their slots fit ``SCRATCH_CAP_BYTES``, each group one
+    launch: a grid of ``c`` CTAs an SM, ``c`` the strips over ``FLAT_SHARE *
+    FLAT_WARPS`` an SM, rounded up, between 1 and ``FLAT_SHARE`` and at most
+    what the card holds, and no more CTAs than the strips fill. Raises
+    ``ValueError`` when one pair's slots alone exceed the cap."""
+    if not pairs or sms < 1:
+        raise ValueError(f"a flat plan needs pairs and SMs, not {len(pairs)} pairs, {sms} SMs")
+    cap = SCRATCH_CAP_BYTES
+    h, W = 32 * FLAT_ROWS, FLAT_WARPS
+    ctas_per_sm = warps_per_sm // W
+    if ctas_per_sm < 1:
+        raise ValueError(f"an SM must hold a CTA of {W} warps, not {warps_per_sm}")
+    transposed = tuple(m > n for m, n in pairs)
+    strips = [-(-min(m, n) // h) for m, n in pairs]
+    words = [2 * (max(m, n) + 1) * (2 if affine else 1) if s > 1 else 0
+             for (m, n), s in zip(pairs, strips)]
+    offsets, claims, groups = [], [], []
+    begin = first = 0
+    while begin < len(pairs):
+        if 8 * words[begin] > cap:
+            m, n = pairs[begin]
+            raise ValueError(f"the {m} x {n} pair's hand-off of {8 * words[begin]} bytes "
+                             f"exceeds the cap of {cap}")
+        end, total = begin, 0
+        while end < len(pairs) and 8 * (total + words[end]) <= cap:
+            offsets.append(total)
+            total += words[end]
+            end += 1
+        # the group's strips, strip-major: strip s of every pair, then s + 1
+        counts = np.asarray(strips[begin:end], np.int64)
+        count = int(counts.sum())
+        pair = np.repeat(np.arange(end - begin), counts)
+        strip = np.arange(count) - np.repeat(np.cumsum(counts) - counts, counts)
+        order = np.lexsort((pair, strip))
+        claims.append(np.stack([pair[order], strip[order]], axis=1))
+        per_sm = min(ctas_per_sm, FLAT_SHARE, -(-count // (sms * W * FLAT_SHARE)))
+        groups.append(FlatGroup(begin, end - begin, first, count,
+                                min(-(-count // W), sms * per_sm), total))
+        first += count
+        begin = end
+    slot_words = max(g.slot_words for g in groups)
+    return FlatPlan(ctas_per_sm, transposed, tuple(strips), tuple(offsets),
+                    np.concatenate(claims).astype(np.int32), tuple(groups),
+                    _FLAT_HEADER_BYTES * len(groups) + 8 * slot_words)
+
+
+_FLAT_CARD: dict = {}
+
+
+def flat_card(device, config: int) -> tuple[int, int]:
+    """(SMs, warps of the flat kernel an SM holds) of the CUDA ``device`` for
+    ``config`` (max * 8 + local * 4 + affine * 2 + classes), from the
+    occupancy API: what ``wavefront_batch`` plans for."""
+    dev = torch.device(device)
+    key = (dev.index, config)
+    if key not in _FLAT_CARD:
+        lib = cuda_build.load()
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.sz_wavefront_flat_occupancy(config, ctypes.byref(per_sm))
+        _raise_on(lib, err, "sz_wavefront_flat_occupancy")
+        _FLAT_CARD[key] = (torch.cuda.get_device_properties(dev).multi_processor_count,
+                           per_sm.value * FLAT_WARPS)
+    return _FLAT_CARD[key]
+
+
 def _launch(chars, a_off, a_len, b_off, b_len, match, mismatch, gap, objective,
             locality, table, extend):
-    """Every pair through ``csrc/wavefront.cu``, which cuts the tiles and
-    splits the pairs into groups whose frontiers fit the scratch."""
+    """Every pair through ``csrc/wavefront.cu``'s flat kernel, one launch a
+    group of ``flat_plan``. It waits for the launches and raises if a
+    strip's wait stalled."""
     dev = chars.device
     affine = extend is not None
-    n = len(a_len)
-    pairs = np.ascontiguousarray(np.stack([a_off, a_len, b_off, b_len], axis=1))
+    config = 8 * (objective == "max") + 4 * (locality == "local") + 2 * affine + (table is not None)
+    plan = flat_plan(list(zip(a_len.tolist(), b_len.tolist())), affine, *flat_card(dev, config))
+    tr = np.array(plan.transposed)
+    rec = np.stack([np.where(tr, b_off, a_off), np.where(tr, b_len, a_len),
+                    np.where(tr, a_off, b_off), np.where(tr, a_len, b_len),
+                    np.array(plan.slot_offsets, np.int64), tr.astype(np.int64)], axis=1)
+    pairs = torch.from_numpy(np.ascontiguousarray(rec)).to(dev)
+    claims = torch.from_numpy(plan.claims).to(dev)
+    handoff = torch.empty(plan.handoff_bytes // 8, dtype=torch.int64, device=dev)
+    groups = plan.record()
+    out = torch.zeros(len(a_len), dtype=torch.int32, device=dev)  # local bests start at 0
     lib = cuda_build.load()
-    largest = ctypes.c_longlong()
-    total = lib.sz_wavefront_scratch_words(affine, pairs.ctypes.data, n, ctypes.byref(largest))
-    words = max(largest.value, min(total, SCRATCH_CAP_BYTES // 4))
-    scratch = torch.empty(words, dtype=torch.int32, device=dev)
-    records = torch.empty((n, 6), dtype=torch.int64, device=dev)
-    out = torch.zeros(n, dtype=torch.int32, device=dev)  # local bests start at 0
     launches = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
-        err = lib.sz_wavefront(
-            objective == "max", locality == "local", affine, table is not None,
-            gap, extend if affine else 0, match, mismatch, chars.data_ptr(),
-            pairs.ctypes.data, n, records.data_ptr(),
-            None if table is None else table.data_ptr(), scratch.data_ptr(), words,
-            out.data_ptr(), ctypes.byref(launches), torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.sz_wavefront_flat(
+            config, gap, extend if affine else 0, match, mismatch,
+            chars.data_ptr(), pairs.data_ptr(), claims.data_ptr(),
+            None if table is None else table.data_ptr(), groups.ctypes.data, len(groups),
+            handoff.data_ptr(), plan.handoff_bytes, out.data_ptr(), ctypes.byref(launches),
+            torch.cuda.current_stream(dev).cuda_stream)
     KERNEL_LAUNCHES["wavefront_flat"] += launches.value
-    _raise_on(lib, err, "sz_wavefront")
+    _raise_on(lib, err, "sz_wavefront_flat")
+    status = handoff[: len(groups)].view(torch.int32)[0::2]
+    if bool((status != 0).any()):  # a stalled wait: a fault, never an answer
+        raise RuntimeError(f"sz_wavefront_flat: a strip's wait stalled (statuses "
+                           f"{sorted(set(status.tolist()))})")
     return out
 
 

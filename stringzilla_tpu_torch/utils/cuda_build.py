@@ -98,19 +98,19 @@ def load() -> ctypes.CDLL:
             so = _build()
             lib = ctypes.CDLL(so)
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sz_myers.argtypes = [p, i, p, i, p, p, i, i, p, p]
+            lib.sz_myers.argtypes = [p, i, p, i, p, p, p, i, i, i, p, p]
             lib.sz_myers.restype = i
-            lib.sz_myers_runes.argtypes = [p, p, p, i, p, i, p, p, i, i, p, p]
+            lib.sz_myers_runes.argtypes = [p, p, p, i, p, i, p, p, p, i, i, i, p, p]
             lib.sz_myers_runes.restype = i
             lib.sz_similarity.argtypes = [i] * 9 + [p, i, p, i, p, p] + [i] * 6 + [p, p, p, p]
             lib.sz_similarity.restype = i
             lib.sz_lookup.argtypes = [p, ctypes.c_size_t, p, p, i, p]
             lib.sz_lookup.restype = i
             ll = ctypes.c_longlong
-            lib.sz_wavefront_scratch_words.argtypes = [i, p, i, p]
-            lib.sz_wavefront_scratch_words.restype = ll
-            lib.sz_wavefront.argtypes = [i] * 8 + [p, p, i, p, p, p, ll, p, p, p]
-            lib.sz_wavefront.restype = i
+            lib.sz_wavefront_flat.argtypes = [i] * 5 + [p, p, p, p, p, i, p, ll, p, p, p]
+            lib.sz_wavefront_flat.restype = i
+            lib.sz_wavefront_flat_occupancy.argtypes = [i, p]
+            lib.sz_wavefront_flat_occupancy.restype = i
             lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, ll, p, p, p]
             lib.sz_wavefront_band.restype = i
             lib.sz_wavefront_band_occupancy.argtypes = [p]

@@ -93,6 +93,20 @@ def test_myers_longest_queries(rng):
     assert got[1, -1] == levenshtein(qs[1], cs[-1]) == 4056
 
 
+def test_myers_block_mixing_word_edges(rng):
+    """One 4,096-row block whose queries sit at the word edges 4/5, 8/9,
+    16/17, 32/33 and 63/64 (tier B gives each its own words, in segments of
+    8, 16 or 32 lanes): every query against candidates of different
+    lengths."""
+    lengths = [64 * w + d for w in (4, 8, 16, 32, 63) for d in (0, 1)] + [4096]
+    qs = _strings(rng, lengths, 97, 100)
+    cs = _strings(rng, rng.integers(0, 49, 60), 97, 100) + [q[-48:] for q in qs[:3]]
+    got, want = _both(qs, cs, 4096, 48)
+    np.testing.assert_array_equal(got, want)
+    for i in range(len(qs)):
+        assert got[i, -1 - i % 3] == levenshtein(qs[i], cs[-1 - i % 3])
+
+
 def test_myers_cpu_tensors_take_the_plain_version(rng):
     """On the CPU the wrapper runs the plain version and counts no launch;
     malformed inputs raise before any work."""

@@ -96,6 +96,39 @@ def test_wavefront_matches_jax(objective, locality, affine, classes):
     assert batch.tolist() == [_score(a, b, **kw) for a, b in pairs]
 
 
+_STRIP_EDGES = [(m, n) for m in (1, 31, 32, 33, 63, 64, 65) for n in (1, 2, 100)] + [(700, 3)]
+
+
+@pytest.fixture
+def one_thread():
+    """The plain version's many small torch ops, on one thread: a pool of
+    threads per op only contends with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("objective,locality,affine,classes", CONFIGS, ids=_IDS)
+def test_wavefront_at_strip_edges_matches_jax(objective, locality, affine, classes):
+    """Lengths at the flat kernel's strip and lane edges (m of 1, 31-33 and
+    63-65 rows against n of 1, 2 and 100 columns) and a thin 700 x 3 pair,
+    costs of both signs, each pair alone and the batch of all of them."""
+    rng = _rng(1000 + CONFIGS.index((objective, locality, affine, classes)))
+    for wrong_sign in (False, True):
+        kw = _costs(rng, objective, affine, classes, wrong_sign)
+        kw["locality"] = locality
+        pairs = [_pair(rng, m, n, classes) for m, n in _STRIP_EDGES]
+        want = [jax_score(a, b, **kw) for a, b in pairs]
+        assert [_score(a, b, **kw) for a, b in pairs] == want, kw
+        chars = torch.from_numpy(np.concatenate([x for p in pairs for x in p]).astype(np.int32))
+        lens = np.array([len(x) for p in pairs for x in p])
+        offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        batch = wavefront_batch(chars, offs[0::2], lens[0::2], offs[1::2], lens[1::2], **kw)
+        assert batch.tolist() == want, kw
+
+
 @pytest.mark.parametrize("locality,affine,classes", list(itertools.product(
     ("global", "local"), (False, True), (False, True))))
 def test_wavefront_matches_oracles(locality, affine, classes):
