@@ -94,10 +94,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3d. The same for this slice's kernels: ``ops.fingerprints_kernel.
    fingerprint_all`` against ``fingerprint_reference`` with widths 1, 3
    and 31 (interleaved over 100 dimensions), the default widths, a width of
-   2000 (above some documents and the kernel's halo), empty documents,
+   2000 (above some documents and the kernel's widest halo), widths 64,
+   1024 (the widest halo) and 1025 (past it), empty documents,
    documents of 1-5000 bytes and 64 KB ones, then every case of
    ``tests/golden/fingerprint_vectors.json`` and the numpy oracle on
-   sampled documents; the rune route of ``ops.myers.myers`` against
+   sampled documents; then the plan's cut: documents at the unit the
+   card's plan takes (``UNIT_MIN``) - 1, at it and + 31, a 64 KB
+   ``b"ab"`` document cut into 256 and 676 ranges under widths 1 and 2,
+   width 2000 on a 64 KB document cut into 16 ranges and widths 64 and
+   512 on it cut into 16 and 110 (a halo of 512 bytes), each through
+   ``minhash_ranges`` against ``ranges_reference`` (whole documents' rows
+   and every partial slot), ``minhash_merge`` against ``merge_reference``
+   on the kernel's partials, the merged results of every unit equal, and
+   against ``fingerprint_reference`` (the unit-edge documents) and the
+   numpy oracle; the rune route of ``ops.myers.myers`` against
    ``myers_reference(..., alphabet=None)`` on query blocks of 1-4096 runes
    (queries of 1, 64, 256, 257 and 4096 runes, blocks of more than 256
    distinct runes, 4-byte runes, U+0000), and against Wagner-Fischer on
@@ -111,11 +121,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ASCII, Cyrillic and CJK) and on a CJK-wide set (64 x 2,048 strings of
    100-400 runes from 3,000 CJK code points, so every query block holds
    more than 256 distinct runes). Counts are reset before these four calls
-   and read after; the MinHash kernel and both rune tiers must have
-   launched. Each result must equal the plain version on the card and the
-   numpy oracle or Wagner-Fischer over runes on sampled docs or pairs. Times
-   the kernel alone, the engines (fingerprints to ``device_out``, with the
-   host pull, and ``device_out`` plus ``band_keys(bands=16)``) and the
+   and read after; both MinHash kernels (the merge on the documents, which
+   the plan cuts) and both rune tiers must have launched. Each result must
+   equal the plain version on the card and the numpy oracle or
+   Wagner-Fischer over runes on sampled docs or pairs; each MinHash kernel
+   is also held against its plain version on the card's plan of each
+   workload. Times each MinHash kernel alone (raw launches, parameters and
+   plan made once; the merge with L2 flushed before each launch, as its
+   bound from HBM assumes, and as on the main path, its partials in L2)
+   beside ``fingerprint_all`` (the plan, its upload and both launches), the
+   engines (fingerprints to ``device_out``, with the host
+   pull, and ``device_out`` plus ``band_keys(bands=16)``) and the
    plain versions; then one malformed collection through the host decode.
 
 3e. The same for the buffer tier's kernels: ``ops.find_kernel.
@@ -372,11 +388,15 @@ HBM_BYTES_PER_S = 3.35e12
 MYERS_OPS_PER_WORD_STEP = 34
 # f64 has 64 lanes an SM a clock, half of float32's 128; counted as
 # instructions (a fused multiply-add is one), like the int32 rate. The
-# MinHash roll per (document, dimension, byte): a multiply, two fused
+# MinHash roll per (document, dimension, byte): 5 f64-pipe instructions
+# (DFMA, DFMA, DFMA.RM, DADD, DFMA; the minimum and count are kept off
+# that pipe), counted in fingerprint_minhash's steady loop in the built
+# library's SASS by tools/minhash_ab.py --probe (PERF.md §6). The step
+# before the redesign counted 10: a multiply, two fused
 # multiply-adds, an add, a multiply and a floor for the quotient, two
 # compare-and-corrects and the minimum's compare and select.
 F64_OPS_PER_S = 67e12 / 4
-FINGERPRINT_OPS_PER_STEP = 10
+FINGERPRINT_OPS_PER_STEP = 5
 # int32 ops a haystack byte: the search's SWAR first-byte filter, 9 a
 # 4-byte word; the UTF-8 pass's byte-wise compares and logic, ~36 a word.
 FIND_OPS_PER_BYTE = 2.25
@@ -563,6 +583,32 @@ def _time_ms(fn, iters, sync, batches=5):
         end.record()
         sync()
         times.append(start.elapsed_time(end) / iters)
+    t = Timing(np.median(times))
+    t.lo, t.hi = min(times), max(times)
+    return t
+
+
+def _time_cold_ms(fn, iters, sync, dev, batches=5):
+    """``_time_ms`` with the L2 cache flushed before each run: a 256 MiB
+    read (five times the 50 MB L2) ahead of each run, outside the CUDA
+    events around it. The read keeps the card busy while the run's launch
+    is queued, so the events time the run alone."""
+    import torch
+
+    flush = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    fn()
+    sync()
+    times = []
+    for _ in range(batches):
+        for start, end in zip(starts, ends):
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
+        sync()
+        times.append(sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters)
     t = Timing(np.median(times))
     t.lo, t.hi = min(times), max(times)
     return t
@@ -1665,16 +1711,85 @@ def _fp_inputs(dev, docs):
 
 
 def _fp_params(dev, ndim, widths, seed):
-    import torch
+    """``derive_params``' parameters as ``kernel_params`` makes them on ``dev``."""
     from stringzilla_tpu_torch.ops.fingerprints import derive_params
+    from stringzilla_tpu_torch.ops.fingerprints_kernel import kernel_params
 
-    return {k: torch.from_numpy(v).to(dev) for k, v in derive_params(ndim, widths, seed).items()}
+    return kernel_params(derive_params(ndim, widths, seed), dev)
+
+
+def _fp_split_err(got, want, whole):
+    """Largest difference between two ``minhash_ranges`` results (the
+    rows of whole documents, the partial slots), or between two merged
+    ``(hashes, counts)`` when ``whole`` is None."""
+    if whole is not None:
+        got = (got[0][whole], got[1][whole], *got[2:])
+        want = (want[0][whole], want[1][whole], *want[2:])
+    return max([0] + [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)
+                      if g.numel()])
+
+
+def _fp_split_check(name, docs, params, units, dev, sync, max_err, oracle=()):
+    """Both MinHash kernels on ``docs`` cut at each of ``units``:
+    ``minhash_ranges`` against ``ranges_reference`` (whole documents' rows
+    and every partial slot), ``minhash_merge`` against ``merge_reference``
+    on the kernel's own partials, the merged results of every unit equal;
+    then against ``fingerprint_reference`` (on documents of up to 4 KB: it
+    steps byte by byte, seconds a 64 KB document) and, on the docs at
+    ``oracle``, the numpy oracle. Exact."""
+    import torch
+    from stringzilla_tpu_torch.ops import fingerprints_kernel as fk
+    from stringzilla_tpu_torch.ops.fingerprints import fingerprint_oracle
+
+    blob, starts, lens = _fp_inputs(dev, docs)
+    first = None
+    for unit in units:
+        plan = fk.minhash_plan(lens.cpu().numpy(), unit)
+        pa = fk.plan_arrays(plan, starts.cpu().numpy(), dev)
+        got = fk.minhash_ranges(blob, pa, params)
+        want = fk.ranges_reference(blob, pa, params)
+        sync()
+        whole = torch.from_numpy(np.isin(np.arange(len(docs)), plan.cut_docs,
+                                         invert=True)).to(dev)
+        err = _fp_split_err(got, want, whole)
+        _check(err == 0, f"fingerprint_minhash != plain version on {name} at unit {unit}")
+        merged = fk.minhash_merge(pa, got[2], got[3], got[0].clone(), got[1].clone())
+        plain = fk.merge_reference(pa, got[2], got[3], got[0].clone(), got[1].clone())
+        sync()
+        merge_err = _fp_split_err(merged, plain, None)
+        _check(merge_err == 0, f"fingerprint_merge != plain version on {name} at unit {unit}")
+        if first is None:
+            first = merged
+        _check(all(torch.equal(g, w) for g, w in zip(merged, first)),
+               f"fingerprint kernels on {name}: unit {unit} != unit {units[0]}")
+        print(f"[kernel] fingerprint_minhash + fingerprint_merge {name}: {len(docs)} docs of "
+              f"{min(map(len, docs))}-{max(map(len, docs))} bytes x {params['width'].numel()} "
+              f"dims at unit {unit}: {len(plan.out)} pieces, {len(plan.cut_docs)} cut docs in "
+              f"{int(plan.cut_first[-1])} ranges, {len(plan.cta_first) - 1} CTAs; both equal "
+              f"their plain versions")
+        max_err["fingerprint_minhash"] = max(max_err.get("fingerprint_minhash", 0), err)
+        max_err["fingerprint_merge"] = max(max_err.get("fingerprint_merge", 0), merge_err)
+    if max(map(len, docs)) <= 4096:
+        ref = fk.fingerprint_reference(blob, starts, lens, params)
+        _check(all(torch.equal(g, w) for g, w in zip(first, ref)),
+               f"fingerprint kernels != fingerprint_reference on {name}")
+    host = {k: v.cpu().numpy() for k, v in params.items() if k != "kernel"}
+    for i in oracle:
+        oh, oc = fingerprint_oracle(docs[i], host)
+        _check(np.array_equal(first[0][i].cpu().numpy().view(np.uint32), oh)
+               and np.array_equal(first[1][i].cpu().numpy().view(np.uint32), oc),
+               f"fingerprint kernels != numpy oracle on {name} doc {i}")
+    print(f"[kernel] fingerprint kernels on {name}: exact at every unit"
+          f"{', against fingerprint_reference' if max(map(len, docs)) <= 4096 else ''}"
+          f" and the numpy oracle on {len(oracle)} docs")
 
 
 def _check_fingerprint_kernel(dev, sync, max_err):
-    """Phase 3d: the MinHash kernel against its plain version, the golden
-    vectors and the numpy oracle."""
+    """Phase 3d: the MinHash kernels against their plain versions, the
+    golden vectors and the numpy oracle; then cut documents at the plan's
+    unit edges."""
     import torch
+    from stringzilla_tpu_torch.ops import fingerprints_kernel as fk
     from stringzilla_tpu_torch.ops.fingerprints import (DEFAULT_WINDOW_WIDTHS, derive_params,
                                                         fingerprint_oracle)
     from stringzilla_tpu_torch.ops.fingerprints_kernel import (fingerprint_all,
@@ -1689,6 +1804,7 @@ def _check_fingerprint_kernel(dev, sync, max_err):
         ("default widths", 256, None, 42, short),
         ("widths 1/3/31 over 100 dims", 100, (1, 3, 31), 5, short),
         ("width 2000", 64, (3, 2000), 1, short),
+        ("widths 64/1024/1025 (the widest halo and past it)", 64, (64, 1024, 1025), 3, short),
         ("64 KB docs", 100, (1, 3, 31), 7, big),
     ]
     err = 0
@@ -1724,7 +1840,39 @@ def _check_fingerprint_kernel(dev, sync, max_err):
                    f"fingerprint kernel != golden vector seed {seed} widths {nw} "
                    f"doc of {len(case['doc'])} bytes")
     print(f"[kernel] fingerprint_minhash: all {len(golden)} golden vectors exact")
-    max_err["fingerprint_minhash"] = err
+    max_err["fingerprint_minhash"] = max(max_err.get("fingerprint_minhash", 0), err)
+
+    # The cut: documents at the unit the card's plan takes for them (- 1,
+    # at it, + 31: one range more, its last one short of the widest
+    # window), through fingerprint_all and through both kernels at that unit;
+    # a 64 KB b"ab" document cut into many ranges under widths 1 and 2 (ties
+    # whose counts add across every cut); width 2000 on a cut document (a
+    # warm-up longer than its ranges).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" \
+        else 132
+    edge = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in (fk.UNIT_MIN - 1, fk.UNIT_MIN, fk.UNIT_MIN + 31) * 3]
+    unit = fk.minhash_unit([len(d) for d in edge], sms)
+    _check(unit == fk.UNIT_MIN, f"the unit edge case's unit is {unit}, not {fk.UNIT_MIN}")
+    params = _fp_params(dev, 256, None, 42)
+    args = (*_fp_inputs(dev, edge), params)
+    got, want = fingerprint_all(*args), fingerprint_reference(*args)
+    sync()
+    _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+           "fingerprint_all != plain version on documents at the unit's edges")
+    _fp_split_check("unit - 1, unit, unit + 31", edge, params, [unit], dev, sync, max_err,
+                    oracle=(0, 1, 2))
+    ab = [b"ab" * 32768]
+    for widths in ((1,), (2,)):
+        params = _fp_params(dev, 64, widths, 9)
+        _fp_split_check(f"64 KB b'ab' widths {widths}", ab, params, [fk.UNIT_MIN, 97], dev,
+                        sync, max_err, oracle=(0,))
+    wide = [rng.integers(0, 256, 65536, dtype=np.uint8).tobytes(), b"xy" * 700]
+    params = _fp_params(dev, 64, (3, 2000), 1)
+    _fp_split_check("width 2000, cut", wide, params, [4096], dev, sync, max_err, oracle=(0,))
+    params = _fp_params(dev, 64, (64, 512), 4)  # a halo of 512 bytes
+    _fp_split_check("widths 64/512, cut", wide, params, [4096, 600], dev, sync, max_err,
+                    oracle=(0,))
 
 
 def _rune_block(rng, q_lens, c_lens, rows, cand_len, alphabet):
@@ -1792,29 +1940,23 @@ def _fingerprint_main_path(dev, sync, report):
                                                                fingerprint_reference)
     from stringzilla_tpu_torch.ops.pack_device import device_tape
 
-    def docs_of(rng, count, lo, hi):
-        lens = rng.integers(lo, hi, count)
-        chars = rng.integers(32, 127, int(lens.sum()), dtype=np.uint8).tobytes()
-        ends = np.cumsum(lens)
-        return [chars[e - n: e] for e, n in zip(ends, lens)]
-
-    lines = docs_of(np.random.default_rng(SEED), FP_LINES, 60, 180)
-    pages = docs_of(np.random.default_rng(SEED + 7), *FP_DOCS)
+    lines, pages = _fp_workloads()
     engine = Fingerprints(ndim=256, seed=42)
     sync()
     _reset(fp_mod.KERNEL_LAUNCHES)
     results = [engine(lines), engine(pages)]
     launches = dict(fp_mod.KERNEL_LAUNCHES)
     print(f"[engine] launches on the fingerprints main path: {launches}")
-    _check(launches["fingerprint_minhash"] > 0, "fingerprint_minhash was not launched")
+    for k in launches:
+        _check(launches[k] > 0, f"{k} was not launched on the fingerprints main path")
 
     for (name, docs, n_oracle), (h, c) in zip(
             (("fingerprints-lines", lines, 16), ("fingerprints-docs", pages, 2)), results):
         _check(h.dtype == c.dtype == np.uint32 and h.shape == c.shape == (len(docs), 256),
                f"{name}: result {h.dtype} {h.shape}")
         dt = device_tape(Tape.from_strings(docs), dev)
-        args = (dt.data, torch.from_numpy(dt.starts).to(dev),
-                torch.from_numpy(dt.lengths).to(dev), engine._params_on(dev))
+        params = engine._params_on(dev)
+        args = (dt.data, torch.from_numpy(dt.starts), torch.from_numpy(dt.lengths), params)
         # the plain version is timed on this one call: it takes seconds
         sync()
         t0 = time.perf_counter()
@@ -1831,6 +1973,37 @@ def _fingerprint_main_path(dev, sync, report):
         print(f"[engine] {name}: {len(docs)} docs equal the plain version and the numpy "
               f"oracle on {n_oracle} docs")
 
+        # Each kernel at the main path's shapes against its plain version,
+        # from the card's plan, with the parameters prepared once; then
+        # timed by raw launches (the kernel alone) beside the wrapper.
+        sms, stream = _launch_env(dev)
+        plan = fp_mod.minhash_plan(dt.lengths, fp_mod.minhash_unit(
+            dt.lengths, sms, params["kernel"].widest))
+        pa = fp_mod.plan_arrays(plan, dt.starts, dev)
+        got = fp_mod.minhash_ranges(dt.data, pa, params)
+        t0 = time.perf_counter()
+        want = fp_mod.ranges_reference(dt.data, pa, params)
+        sync()
+        ranges_plain_ms = (time.perf_counter() - t0) * 1e3
+        whole = torch.from_numpy(np.isin(np.arange(len(docs)), plan.cut_docs,
+                                         invert=True)).to(dev)
+        ranges_err = _fp_split_err(got, want, whole)
+        _check(ranges_err == 0, f"{name}: fingerprint_minhash != plain version")
+        merged = fp_mod.minhash_merge(pa, got[2], got[3], got[0].clone(), got[1].clone())
+        t0 = time.perf_counter()
+        merged_plain = fp_mod.merge_reference(pa, got[2], got[3], got[0].clone(),
+                                              got[1].clone())
+        sync()
+        merge_plain_ms = (time.perf_counter() - t0) * 1e3
+        merge_err = _fp_split_err(merged, merged_plain, None)
+        _check(merge_err == 0, f"{name}: fingerprint_merge != plain version")
+        _check(np.array_equal(merged[0].cpu().numpy().view(np.uint32), h),
+               f"{name}: the two kernels' result != the engine's")
+        print(f"[kernel] {name}: plan unit {plan.unit}, {len(plan.out)} pieces, "
+              f"{len(plan.cta_first) - 1} CTAs, {len(plan.cut_docs)} cut docs in "
+              f"{pa.n_slots} ranges; fingerprint_minhash and fingerprint_merge equal their "
+              f"plain versions")
+
         total = float(sum(map(len, docs)))
         hashes = total * 256  # (doc, dimension, byte) steps
         runs = 3
@@ -1846,22 +2019,77 @@ def _fingerprint_main_path(dev, sync, report):
         engine_ms = host_ms(lambda: engine(docs))
         device_ms = host_ms(lambda: engine(docs, device_out=True))
         bands_ms = host_ms(lambda: band_keys(engine(docs, device_out=True)[0], bands=16))
-        kernel_ms = _time_ms(lambda: fingerprint_all(*args), 10, sync)
+        ints, floats, halo, _ = params["kernel"]
+        f = floats.data_ptr()
+        out_h, out_c, part_min, part_count = got
+        kernel_ms = _time_ms(_raw_launch(
+            "sz_fingerprints", dt.data.data_ptr(), pa.pieces.data_ptr(),
+            pa.cta_first.data_ptr(), pa.cta_first.numel() - 1, ints[0].data_ptr(),
+            ints[1].data_ptr(), f, f + 8 * 256, f + 16 * 256, f + 24 * 256, 256, halo,
+            out_h.data_ptr(), out_c.data_ptr(), part_min.data_ptr(), part_count.data_ptr(),
+            stream), 10, sync)
+        n_cut = len(plan.cut_docs)
+        merge = _raw_launch(
+            "sz_fingerprints_merge", pa.cut.data_ptr(), n_cut, part_min.data_ptr(),
+            part_count.data_ptr(), 256, out_h.data_ptr(), out_c.data_ptr(), stream)
+        # On the main path the merge finds its partials in L2, just written
+        # by fingerprint_minhash (warm); its bound counts them read from HBM,
+        # so it is held to that bound with L2 flushed before each launch
+        merge_warm_ms = _time_ms(merge, 10, sync) if n_cut else None
+        merge_ms = _time_cold_ms(merge, 10, sync, dev) if n_cut else None
+        wrapper_ms = _time_ms(lambda: fingerprint_all(*args), 10, sync)
         _profile(name, lambda: engine(docs), sync, kernel_ms)
+        if name == "fingerprints-docs":  # its trace is often lost (PERF.md §7)
+            _profile(name + " (again)", lambda: engine(docs), sync, kernel_ms)
         ops_ms = FINGERPRINT_OPS_PER_STEP * hashes / F64_OPS_PER_S * 1e3
+        ops10_ms = 10 * hashes / F64_OPS_PER_S * 1e3
         bytes_ms = (total + 16.0 * len(docs) + 8.0 * 256 * len(docs)) / HBM_BYTES_PER_S * 1e3
         bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
         if name == "fingerprints-lines":
             report["fingerprint_minhash"] = dict(
-                launches=launches["fingerprint_minhash"], ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                launches=launches["fingerprint_minhash"], ms=kernel_ms,
+                plain_ms=ranges_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, max_abs_err=ranges_err)
+        merge_note = "no cut document"
+        if merge_ms is not None:
+            # the merge reads each slot's minimum and count once and writes
+            # each cut document's row once, here from and to HBM
+            merge_bound = (12.0 * pa.n_slots + 8.0 * n_cut) * 256 / HBM_BYTES_PER_S * 1e3
+            merge_note = (f"merge {merge_ms:.4f} ms [{merge_ms.lo:.4f}-{merge_ms.hi:.4f}] with "
+                          f"L2 flushed before each launch, {merge_warm_ms:.4f} ms "
+                          f"[{merge_warm_ms.lo:.4f}-{merge_warm_ms.hi:.4f}] with its partials "
+                          f"in L2 as on the main path, on {n_cut} docs of {pa.n_slots} ranges, "
+                          f"plain {merge_plain_ms:.3f} ms, bound {merge_bound:.4f} ms (bytes "
+                          f"from HBM), {100 * merge_bound / merge_ms:.1f}% of it flushed")
+            report["fingerprint_merge"] = dict(
+                launches=launches["fingerprint_merge"], ms=merge_ms, plain_ms=merge_plain_ms,
+                bound_ms=merge_bound, bound_by="bytes", library_ms=None, max_abs_err=merge_err)
         print(f"[perf] {name} {len(docs)} docs, {total:.0f} bytes x 256 dims: "
-              f"kernel {kernel_ms:.4f} ms = {hashes / kernel_ms / 1e6:.3f} Ghash/s; "
-              f"engine to device_out {device_ms:.3f} ms = {hashes / device_ms / 1e6:.3f} Ghash/s; "
+              f"kernel {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
+              f"{hashes / kernel_ms / 1e6:.3f} Ghash/s (raw launch, parameters and plan made "
+              f"once); {merge_note}; fingerprint_all {wrapper_ms:.4f} ms "
+              f"[{wrapper_ms.lo:.4f}-{wrapper_ms.hi:.4f}] (plan, its upload and both "
+              f"launches); engine to device_out {device_ms:.3f} ms = "
+              f"{hashes / device_ms / 1e6:.3f} Ghash/s; "
               f"device_out + band_keys(16) {bands_ms:.3f} ms; "
               f"engine+pull {engine_ms:.3f} ms = {hashes / engine_ms / 1e6:.3f} Ghash/s; "
-              f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / kernel_ms:.1f}% of it")
+              f"plain {plain_ms:.3f} ms, the plain range version {ranges_plain_ms:.3f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {FINGERPRINT_OPS_PER_STEP} f64 "
+              f"instructions a step), {100 * bound_ms / kernel_ms:.1f}% of it; at 10 a step "
+              f"{ops10_ms:.4f} ms, {100 * ops10_ms / kernel_ms:.1f}%")
+
+
+def _fp_workloads():
+    """Phase 4d's fingerprint documents: ``bench_fingerprints``' lines and
+    web-page-sized docs."""
+    def docs_of(rng, count, lo, hi):
+        lens = rng.integers(lo, hi, count)
+        chars = rng.integers(32, 127, int(lens.sum()), dtype=np.uint8).tobytes()
+        ends = np.cumsum(lens)
+        return [chars[e - n: e] for e, n in zip(ends, lens)]
+
+    return (docs_of(np.random.default_rng(SEED), FP_LINES, 60, 180),
+            docs_of(np.random.default_rng(SEED + 7), *FP_DOCS))
 
 
 def _utf8_sets():
@@ -3129,6 +3357,8 @@ def run(dev) -> list:
                            "csrc/wavefront.cu"),
         "fingerprint_minhash": ("stringzilla_tpu/ops/fingerprints_pallas.py:70",
                                 "csrc/fingerprints.cu"),
+        "fingerprint_merge": ("stringzilla_tpu/ops/fingerprints_pallas.py:70",
+                              "csrc/fingerprints.cu"),
         "myers_tier_a_runes": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
         "myers_tier_b_runes": ("stringzilla_tpu/ops/myers_pallas.py:89", "csrc/myers.cu"),
         "find_search": ("stringzilla_tpu/ops/find_pallas.py:84", "csrc/find.cu"),

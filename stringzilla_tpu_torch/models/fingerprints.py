@@ -8,9 +8,11 @@ device=None)`` and returning ``(min_hashes, min_counts)``, two ``(docs,
 ndim) uint32`` arrays (``python/stringzillas.c:2162-2300``, C ABI
 ``stringzillas.h:516-580``).
 
-One call is one launch of the MinHash kernel (``ops/fingerprints_kernel.py``)
-over the collection's device tape, writing the ``(docs, ndim)`` layout
-directly: no length buckets, no lane or dimension padding. The outputs are
+One call plans the collection's device tape on the host and launches the
+MinHash kernel over it (``ops/fingerprints_kernel.py``; a second, small
+launch merges the documents the plan cut into byte ranges), writing the
+``(docs, ndim)`` layout directly: no length buckets, no lane or dimension
+padding. The outputs are
 bit-identical to the reference's f64 engines and to the JAX package's.
 """
 
@@ -19,8 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.fingerprints import DEFAULT_WINDOW_WIDTHS, PARAM_KEYS, derive_params
-from ..ops.fingerprints_kernel import fingerprint_all
+from ..ops.fingerprints import DEFAULT_WINDOW_WIDTHS, derive_params
+from ..ops.fingerprints_kernel import fingerprint_all, kernel_params
 from ..ops.pack_device import device_tape
 from ..ops.tape import Tape
 from .device_scope import DeviceScope, default_device_scope
@@ -49,12 +51,11 @@ class Fingerprints:
                 f"alphabet_size={self.alphabet_size},seed={self.seed})")
 
     def _params_on(self, device: torch.device) -> dict:
-        """The per-dimension parameters as int64 tensors on ``device``, copied
-        there once."""
+        """The per-dimension parameters as int64 tensors on ``device``, with
+        the kernel's arrays (``kernel_params``), made there once."""
         params = self._on_device.get(device)
         if params is None:
-            params = self._on_device[device] = {
-                k: torch.from_numpy(self._params[k]).to(device) for k in PARAM_KEYS}
+            params = self._on_device[device] = kernel_params(self._params, device)
         return params
 
     def __call__(self, texts, device: DeviceScope | None = None,
@@ -75,9 +76,10 @@ class Fingerprints:
             [s.tobytes() if isinstance(s, np.ndarray) and s.ndim == 1 else s
              for s in texts])
         dt = device_tape(tape, dev)
+        # starts and lengths stay on the host, where the plan is made
         hashes, counts = fingerprint_all(
-            dt.data, torch.from_numpy(dt.starts).to(dev),
-            torch.from_numpy(dt.lengths).to(dev), self._params_on(dev))
+            dt.data, torch.from_numpy(dt.starts), torch.from_numpy(dt.lengths),
+            self._params_on(dev))
         if device_out:
             return hashes, counts
         min_hashes = hashes.cpu().numpy().view(np.uint32)

@@ -12,7 +12,9 @@ and one more links the objects into the library.
 The library lands in ``build/stringzilla_tpu_torch/`` beside the package
 (ignored by git) on first use, so a fresh checkout builds it by itself.
 Nothing here runs at import time. A failed compile raises with ``nvcc``'s
-own output; there is no fallback.
+own output; there is no fallback. ``load_variant`` builds the same sources
+with extra preprocessor definitions into a library of its own, bound the
+same way: for tools that time a kernel's compile-time variants.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["load", "build_log"]
+__all__ = ["load", "load_variant", "build_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -51,10 +53,13 @@ def _nvcc() -> str:
     return path
 
 
-def _build() -> str:
+def _build(defines=()) -> str:
+    """The library's path, built first if no library of these sources and
+    flags (``_FLAGS`` and ``-D`` each of ``defines``) is there."""
+    flags = [*_FLAGS, *(f"-D{d}" for d in defines)]
     sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in sources + headers:
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
@@ -65,7 +70,7 @@ def _build() -> str:
     nvcc = _nvcc()
     tmp = f"{so}.tmp{os.getpid()}"
     objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
-    commands = [[nvcc, *_FLAGS, "-c", "-o", obj, src]
+    commands = [[nvcc, *flags, "-c", "-o", obj, src]
                 for src, obj in zip(sources, objects)]
     commands.append([nvcc, *_ARCH, "-shared", "-o", tmp, *objects])
     run = lambda cmd: subprocess.run(cmd, capture_output=True, text=True,
@@ -90,53 +95,66 @@ def _build() -> str:
     return so
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with every entry point's argument and result types set."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sz_myers.argtypes = [p, i, p, i, p, p, p, i, i, i, p, p]
+    lib.sz_myers.restype = i
+    lib.sz_myers_runes.argtypes = [p, p, p, i, p, i, p, p, p, i, i, i, p, p]
+    lib.sz_myers_runes.restype = i
+    lib.sz_similarity.argtypes = [i] * 9 + [p, i, p, i, p, p] + [i] * 6 + [p, p, p, p]
+    lib.sz_similarity.restype = i
+    lib.sz_lookup.argtypes = [p, ctypes.c_size_t, p, p, i, p]
+    lib.sz_lookup.restype = i
+    ll = ctypes.c_longlong
+    lib.sz_wavefront_flat.argtypes = [i] * 5 + [p, p, p, p, p, i, p, ll, p, p, p]
+    lib.sz_wavefront_flat.restype = i
+    lib.sz_wavefront_flat_occupancy.argtypes = [i, p]
+    lib.sz_wavefront_flat_occupancy.restype = i
+    lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, ll, p, p, p]
+    lib.sz_wavefront_band.restype = i
+    lib.sz_wavefront_band_occupancy.argtypes = [p]
+    lib.sz_wavefront_band_occupancy.restype = i
+    lib.sz_wavefront_stage.argtypes = [p, i, p, i, i, i, p, ll, p]
+    lib.sz_wavefront_stage.restype = i
+    lib.sz_wavefront_stage_occupancy.argtypes = [i, p]
+    lib.sz_wavefront_stage_occupancy.restype = i
+    lib.sz_fingerprints.argtypes = [p, p, p, i, p, p, p, p, p, p, i, i, p, p, p, p, p]
+    lib.sz_fingerprints.restype = i
+    lib.sz_fingerprints_merge.argtypes = [p, i, p, p, i, p, p, p]
+    lib.sz_fingerprints_merge.restype = i
+    lib.sz_find_search.argtypes = [p, ll, i, i, p, p, ll, p, ll, ll, p, i, p]
+    lib.sz_find_search.restype = i
+    lib.sz_utf8_validate_count.argtypes = [p, ll, p, i, p]
+    lib.sz_utf8_validate_count.restype = i
+    u64 = ctypes.c_ulonglong
+    lib.sz_hash_short.argtypes = [p, ll, p, p, ll, u64, p, i, p]
+    lib.sz_hash_short.restype = i
+    for name in ("sz_hash_long", "sz_hash_long_wide"):
+        getattr(lib, name).argtypes = [p, ll, p, p, ll, u64, ll, p, i, i, p]
+        getattr(lib, name).restype = i
+    lib.sz_fill_random.argtypes = [u64, ll, p, i, p]
+    lib.sz_fill_random.restype = i
+    lib.sz_cuda_error_string.argtypes = [i]
+    lib.sz_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib, _log_path
     with _lock:
         if _lib is None:
             so = _build()
-            lib = ctypes.CDLL(so)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sz_myers.argtypes = [p, i, p, i, p, p, p, i, i, i, p, p]
-            lib.sz_myers.restype = i
-            lib.sz_myers_runes.argtypes = [p, p, p, i, p, i, p, p, p, i, i, i, p, p]
-            lib.sz_myers_runes.restype = i
-            lib.sz_similarity.argtypes = [i] * 9 + [p, i, p, i, p, p] + [i] * 6 + [p, p, p, p]
-            lib.sz_similarity.restype = i
-            lib.sz_lookup.argtypes = [p, ctypes.c_size_t, p, p, i, p]
-            lib.sz_lookup.restype = i
-            ll = ctypes.c_longlong
-            lib.sz_wavefront_flat.argtypes = [i] * 5 + [p, p, p, p, p, i, p, ll, p, p, p]
-            lib.sz_wavefront_flat.restype = i
-            lib.sz_wavefront_flat_occupancy.argtypes = [i, p]
-            lib.sz_wavefront_flat_occupancy.restype = i
-            lib.sz_wavefront_band.argtypes = [p, p, i, i, p, p, ll, p, p, p]
-            lib.sz_wavefront_band.restype = i
-            lib.sz_wavefront_band_occupancy.argtypes = [p]
-            lib.sz_wavefront_band_occupancy.restype = i
-            lib.sz_wavefront_stage.argtypes = [p, i, p, i, i, i, p, ll, p]
-            lib.sz_wavefront_stage.restype = i
-            lib.sz_wavefront_stage_occupancy.argtypes = [i, p]
-            lib.sz_wavefront_stage_occupancy.restype = i
-            lib.sz_fingerprints.argtypes = [p, p, p, i, p, p, p, p, i, p, p, p]
-            lib.sz_fingerprints.restype = i
-            lib.sz_find_search.argtypes = [p, ll, i, i, p, p, ll, p, ll, ll, p, i, p]
-            lib.sz_find_search.restype = i
-            lib.sz_utf8_validate_count.argtypes = [p, ll, p, i, p]
-            lib.sz_utf8_validate_count.restype = i
-            u64 = ctypes.c_ulonglong
-            lib.sz_hash_short.argtypes = [p, ll, p, p, ll, u64, p, i, p]
-            lib.sz_hash_short.restype = i
-            for name in ("sz_hash_long", "sz_hash_long_wide"):
-                getattr(lib, name).argtypes = [p, ll, p, p, ll, u64, ll, p, i, i, p]
-                getattr(lib, name).restype = i
-            lib.sz_fill_random.argtypes = [u64, ll, p, i, p]
-            lib.sz_fill_random.restype = i
-            lib.sz_cuda_error_string.argtypes = [i]
-            lib.sz_cuda_error_string.restype = ctypes.c_char_p
-            _lib, _log_path = lib, so[:-3] + ".log"
+            _lib, _log_path = _bind(ctypes.CDLL(so)), so[:-3] + ".log"
         return _lib
+
+
+def load_variant(defines) -> ctypes.CDLL:
+    """The kernel library built with ``-D`` each of ``defines`` (``"NAME"``
+    or ``"NAME=VALUE"``), bound like ``load``'s. Each call loads it anew;
+    the build is kept on disk like ``load``'s."""
+    return _bind(ctypes.CDLL(_build(tuple(defines))))
 
 
 def build_log() -> str:
