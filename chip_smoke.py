@@ -110,7 +110,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    numpy oracle; the rune route of ``ops.myers.myers`` against
    ``myers_reference(..., alphabet=None)`` on query blocks of 1-4096 runes
    (queries of 1, 64, 256, 257 and 4096 runes, blocks of more than 256
-   distinct runes, 4-byte runes, U+0000), and against Wagner-Fischer on
+   distinct runes, 4-byte runes, U+0000; a tier-A query of 256 distinct
+   runes and a tier-B one of 4,096, the kernel's fullest hash tables;
+   candidate runes -1, 0, INT32_MIN and INT32_MAX against queries with and
+   without U+0000; queries whose runes all share one home slot of the
+   table), tier B in both segment widths, and against Wagner-Fischer on
    sampled pairs. Exact equality.
 4d. Main path, fingerprints and UTF-8: ``Fingerprints(ndim=256)``
    (default widths, seed 42) on ``benches/bench_all.py::
@@ -132,7 +136,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside ``fingerprint_all`` (the plan, its upload and both launches), the
    engines (fingerprints to ``device_out``, with the host
    pull, and ``device_out`` plus ``band_keys(bands=16)``) and the
-   plain versions; then one malformed collection through the host decode.
+   plain versions. Times each rune tier alone on its set's block (raw
+   launches, rune tables built beforehand) beside the ``myers`` wrapper
+   (which builds them), the engine's own rune launches one by one, summed
+   per tier, and the engine to its device result and with the host pull;
+   counts the rune table builds of one engine call (one a query block);
+   then one malformed collection through the host decode.
 
 3e. The same for the buffer tier's kernels: ``ops.find_kernel.
    search_positions`` against ``search_positions_reference`` in every mode
@@ -899,6 +908,22 @@ def _check_lut_kernel(dev, sync, max_err):
     max_err["byte_lut"] = err
 
 
+def headline_strings():
+    """Phase 4's ``headline`` workload (``HEADLINE``): ``bench.py``'s
+    draws in its order, lines of N(100, 12.5) lowercase bytes clipped to
+    [8, 128]."""
+    rng = np.random.default_rng(SEED)
+
+    def make_batch(count, maxlen, mean_len=100):
+        lens = np.clip(rng.normal(mean_len, mean_len / 8, count).astype(np.int32),
+                       8, maxlen)
+        chars = rng.integers(97, 123, size=(maxlen, count), dtype=np.int32)
+        return [chars[: lens[i], i].astype(np.uint8).tobytes()
+                for i in range(count)]
+
+    return make_batch(HEADLINE[0], 128), make_batch(HEADLINE[1], 128)
+
+
 def long_strings():
     """Phase 4's ``long`` workload (``LONG``): queries and candidates of
     300-4096 lowercase bytes, every fourth candidate a near-duplicate of a
@@ -965,6 +990,60 @@ def tier_b_launch(block, dev, seg=None):
     return launch, out
 
 
+def rune_launch(block, dev, seg=None, tables=None):
+    """A function that launches the raw ``sz_myers_runes`` (either tier)
+    on a packed rune block, its rune tables (``tables``, or ``_rune_peq``'s)
+    built, its candidates ordered by length and tier B's segment width
+    picked (``ops.myers.tier_b_plan``, or ``seg`` when given) beforehand,
+    and the output it writes."""
+    import torch
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+
+    q_t, qlens, cands_t, clens = block
+    (rows, nq), (cand_len, nc) = q_t.shape, cands_t.shape
+    words = myers_mod.words_of(rows)
+    keys, key_offs, peq = (myers_mod._rune_peq(q_t, qlens, words) if tables is None
+                           else tables)
+    out = torch.empty((nq, nc), dtype=torch.int32, device=dev)
+    by_length = torch.argsort(clens.view(-1)).to(torch.int32)
+    sms, stream = _launch_env(dev)
+    seg = myers_mod.tier_b_plan(words, nq, nc, sms) if seg is None else seg
+    launch = _raw_launch("sz_myers_runes", keys.data_ptr(), key_offs.data_ptr(), peq.data_ptr(),
+                         words, qlens.data_ptr(), nq, cands_t.data_ptr(), clens.data_ptr(),
+                         by_length.data_ptr(), seg, cand_len, nc, out.data_ptr(), stream)
+    launch.keep = (keys, key_offs, peq, by_length)  # alive as long as the launch
+    launch.seg = seg if words > 4 else None
+    return launch, out
+
+
+def _engine_blocks(engine, qs, cs, keep):
+    """The ``myers`` calls one call of ``engine`` makes whose query block
+    and alphabet pass ``keep``: ``[(block, keywords)]``, each block the
+    engine's own packed ``(q_t, qlens, cands_t, clens)``."""
+    from stringzilla_tpu_torch.models import similarities as sim_mod
+
+    real, calls = sim_mod.myers, []
+
+    def spy(q_t, qlens, cands_t, clens, alphabet=256, **kw):
+        if keep(q_t, alphabet):
+            calls.append(((q_t, qlens, cands_t, clens), kw))
+        return real(q_t, qlens, cands_t, clens, alphabet=alphabet, **kw)
+
+    sim_mod.myers = spy
+    try:
+        engine(qs, cs)
+    finally:
+        sim_mod.myers = real
+    return calls
+
+
+def _block_bound_ms(block):
+    """A Myers block's operations bound, each query on its own words."""
+    word_steps = (np.ceil(block[1].cpu().numpy() / 64).sum()
+                  * block[3].cpu().numpy().astype(np.float64).sum())
+    return _bound(MYERS_OPS_PER_WORD_STEP * word_steps, 0)[0]
+
+
 def _engine_tier_b(engine, qs, cs, dev, sync, launcher=tier_b_launch):
     """The tier-B blocks one call of ``engine`` launches (byte strings),
     each one raw kernel launch on the engine's own packed block
@@ -972,32 +1051,39 @@ def _engine_tier_b(engine, qs, cs, dev, sync, launcher=tier_b_launch):
     checked against the plain version: a list of ``(rows, queries,
     candidates, ms, bound ms, lanes a candidate)``, the bound counting each
     query's own words."""
-    from stringzilla_tpu_torch.models import similarities as sim_mod
     from stringzilla_tpu_torch.ops import myers as myers_mod
 
-    real, blocks = sim_mod.myers, []
-
-    def spy(q_t, qlens, cands_t, clens, alphabet=256):
-        if myers_mod.words_of(q_t.shape[0]) > 4 and alphabet is not None:
-            blocks.append((q_t, qlens, cands_t, clens))
-        return real(q_t, qlens, cands_t, clens, alphabet=alphabet)
-
-    sim_mod.myers = spy
-    try:
-        engine(qs, cs)
-    finally:
-        sim_mod.myers = real
+    calls = _engine_blocks(engine, qs, cs, lambda q_t, alphabet: (
+        myers_mod.words_of(q_t.shape[0]) > 4 and alphabet is not None))
     timed = []
-    for block in blocks:
+    for block, _ in calls:
         (rows, nq), (_, nc) = block[0].shape, block[2].shape
         launch, out = launcher(block, dev)
         ms = _time_ms(launch, 10, sync)
         _check(bool((out == myers_mod.myers_reference(*block)).all()),
                f"tier B on the engine's {rows}-row block != the plain version")
-        word_steps = (np.ceil(block[1].cpu().numpy() / 64).sum()
-                      * block[3].cpu().numpy().astype(np.float64).sum())
-        timed.append((rows, nq, nc, ms, _bound(MYERS_OPS_PER_WORD_STEP * word_steps, 0)[0],
-                      launch.seg))
+        timed.append((rows, nq, nc, ms, _block_bound_ms(block), launch.seg))
+    return timed
+
+
+def _engine_runes(engine, qs, cs, dev, sync):
+    """The rune blocks one call of ``engine`` launches, each one raw
+    ``sz_myers_runes`` launch on the engine's own packed block and rune
+    tables (``rune_launch``; built there where the engine passes none)
+    timed alone by CUDA events and checked against the plain version: a
+    list of ``(tier, rows, queries, candidates, ms, bound ms, lanes a
+    candidate)``, the bound counting each query's own words."""
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+
+    timed = []
+    for block, kw in _engine_blocks(engine, qs, cs, lambda q_t, alphabet: alphabet is None):
+        (rows, nq), (_, nc) = block[0].shape, block[2].shape
+        launch, out = rune_launch(block, dev, tables=kw.get("rune_tables"))
+        ms = _time_ms(launch, 10, sync)
+        _check(bool((out == myers_mod.myers_reference(*block, alphabet=None)).all()),
+               f"the rune kernel on the engine's {rows}-row block != the plain version")
+        tier = "myers_tier_a_runes" if myers_mod.words_of(rows) <= 4 else "myers_tier_b_runes"
+        timed.append((tier, rows, nq, nc, ms, _block_bound_ms(block), launch.seg))
     return timed
 
 
@@ -1008,17 +1094,7 @@ def _myers_main_path(dev, sync, report):
     from stringzilla_tpu_torch.ops.myers import myers, myers_reference
     from tests.oracles import levenshtein
 
-    rng = np.random.default_rng(SEED)  # bench.py's draws, in bench.py's order
-
-    def make_batch(count, maxlen, mean_len=100):
-        lens = np.clip(rng.normal(mean_len, mean_len / 8, count).astype(np.int32),
-                       8, maxlen)
-        chars = rng.integers(97, 123, size=(maxlen, count), dtype=np.int32)
-        return [chars[: lens[i], i].astype(np.uint8).tobytes()
-                for i in range(count)]
-
-    head_q = make_batch(HEADLINE[0], 128)
-    head_c = make_batch(HEADLINE[1], 128)
+    head_q, head_c = headline_strings()
     long_q, long_c = long_strings()
 
     engine = LevenshteinDistances()
@@ -1886,6 +1962,20 @@ def _rune_block(rng, q_lens, c_lens, rows, cand_len, alphabet):
 CJK = np.arange(0x4E00, 0x4E00 + 3000)
 
 
+def _same_home(count, words, home=5):
+    """``count`` runes that share one home slot of the rune hash table of a
+    block of ``words`` words."""
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+
+    runes = np.arange(1 << 22, dtype=np.int64)
+    runes = runes[myers_mod._home(runes, myers_mod.rune_table_bits(words)) == home]
+    return runes[:count].astype(np.int32)
+
+
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+EXTREME_RUNES = np.array([0, -1, -5, INT32_MIN, INT32_MAX, 0x10FFFF], np.int32)
+
+
 def _check_rune_myers_kernel(dev, sync, max_err):
     """Phase 3d: both Myers tiers' rune route against their plain version
     and Wagner-Fischer."""
@@ -1897,6 +1987,8 @@ def _check_rune_myers_kernel(dev, sync, max_err):
     # U+0000, 4-byte runes (U+10000.., emoji), Latin and CJK
     mixed = np.concatenate([[0], np.arange(0x10000, 0x10040), np.arange(0x1F600, 0x1F640),
                             np.arange(97, 123), CJK[:600]])
+    extremes = np.concatenate([EXTREME_RUNES, CJK[:40]])
+    wide = np.arange(0x4E00 - 1000, 0x4E00 + 3096)  # 4,096 distinct runes
     cases = [  # name, query lengths, candidate lengths, rows, cand_len, runes
         ("runes w1", [1, 17, 64, 0], rng.integers(0, 101, 300), 64, 100, mixed[:40]),
         ("runes w1 wide", [1, 64, 60, 50, 64], rng.integers(0, 101, 300), 64, 100, mixed),
@@ -1904,22 +1996,43 @@ def _check_rune_myers_kernel(dev, sync, max_err):
         ("runes w5", [257, 300, 64], rng.integers(0, 400, 64), 320, 400, mixed),
         ("runes w64", [4096, 4000, 257, 1], rng.integers(0, 4097, 24), 4096, 4096, CJK),
         ("runes mixed words", MIXED_WORD_QUERIES, rng.integers(0, 1201, 37), 4096, 1200, CJK),
+        # the fullest tables: a query of 256 distinct runes (tier A, 512
+        # slots) and one of 4,096 (tier B, 8,192 slots, 64 KB)
+        ("runes 256 distinct", [256, 200, 256], rng.integers(0, 301, 300), 256, 300, CJK[:256]),
+        ("runes 4096 distinct", [4096, 3000, 64], rng.integers(0, 4097, 24), 4096, 4096, wide),
+        # -1, 0, INT32_MIN and INT32_MAX as candidate runes, a query with
+        # U+0000 and one without, in each tier
+        ("runes extremes w2", [64, 100, 128, 7], rng.integers(0, 129, 300), 128, 128, extremes),
+        ("runes extremes w5", [300, 257, 320], rng.integers(0, 321, 64), 320, 320, extremes),
+        # runes that all share one home slot: the longest probes
+        ("runes colliding w4", [256, 255, 30], rng.integers(0, 301, 300), 256, 300,
+         _same_home(256, 4)),
+        ("runes colliding w5", [320, 300, 5], rng.integers(0, 321, 64), 320, 320,
+         _same_home(320, 5)),
     ]
     for name, q_lens, c_lens, rows, cand_len, runes in cases:
         q_t, ql, c_t, cl = _rune_block(rng, q_lens, c_lens, rows, cand_len, runes)
         c_t[:2, 1] = [0, -1]  # U+0000 matches; the padding value is a rune like any
+        if "distinct" in name or "colliding" in name:  # query 0 holds every rune once
+            q_t[: q_lens[0], 0] = rng.permutation(runes)[: q_lens[0]]
+        if "extremes" in name:
+            q_t[0, 0] = 0  # query 0 holds U+0000, query 1 does not
+            q_t[: q_lens[1], 1] = np.where(q_t[: q_lens[1], 1] == 0, CJK[0], q_t[: q_lens[1], 1])
+            for j in range(0, len(c_lens), 3):
+                c_t[: min(4, cl[0, j]), j] = [-1, 0, INT32_MIN, INT32_MAX][: min(4, cl[0, j])]
         args = [torch.from_numpy(x).to(dev) for x in (q_t, ql, c_t, cl)]
         want = myers_reference(*args, alphabet=None)
         tier = ("myers_tier_a" if words_of(rows) <= 4 else "myers_tier_b") + "_runes"
-        distinct = len(np.unique(np.concatenate([q_t[:m, i] for i, m in enumerate(q_lens)])))
+        distinct = [len(np.unique(q_t[:m, i])) for i, m in enumerate(q_lens)]
+        in_block = len(np.unique(np.concatenate([q_t[:m, i] for i, m in enumerate(q_lens)])))
         for seg, got in _each_segment(rows, lambda: myers(*args, alphabet=None)):
             sync()
             err = int((got.long() - want.long()).abs().max())
             max_err[tier] = max(max_err.get(tier, 0), err)
             lanes = f" S={seg}" if seg else ""
-            print(f"[kernel] {name:14s} {tier}{lanes} rows={rows} cand_len={cand_len} "
-                  f"{len(q_lens)}x{len(c_lens)}, {distinct} distinct runes in the block, "
-                  f"max_abs_err={err}")
+            print(f"[kernel] {name:19s} {tier}{lanes} rows={rows} cand_len={cand_len} "
+                  f"{len(q_lens)}x{len(c_lens)}, {in_block} distinct runes in the block, at most "
+                  f"{max(distinct)} a query, max_abs_err={err}")
             _check(torch.equal(got, want), f"rune kernel != plain version in case {name}{lanes}")
         res = got.cpu().numpy()
         # tests/oracles.py's Wagner-Fischer is pure Python: the numpy one
@@ -2115,16 +2228,37 @@ def _utf8_sets():
             ("utf8-cjk", text(cjk(UTF8_CJK[0])), text(cjk(UTF8_CJK[1])))]
 
 
+def utf8_block(qs, cs, dev):
+    """One rune block of every query and one of every candidate (str),
+    decoded and packed on the card as the engine packs its blocks: the
+    rune kernel's inputs when timed alone."""
+    import torch
+    from stringzilla_tpu_torch import Tape
+    from stringzilla_tpu_torch.ops.pack_device import device_tape
+    from stringzilla_tpu_torch.ops.tape import dyadic_bucket
+    from stringzilla_tpu_torch.ops.utf8_pack_device import decode_pack_device
+
+    def packed(texts, rows, fill):
+        raw = [t.encode() for t in texts]
+        dt = device_tape(Tape.from_strings(raw), dev)
+        return decode_pack_device(dt, np.arange(len(raw)), dyadic_bucket(max(map(len, raw))),
+                                  rows, fill=fill)
+
+    ql = np.array([len(q) for q in qs], np.int32)
+    cl = np.array([len(c) for c in cs], np.int32)
+    rows = -(-int(ql.max()) // 32) * 32
+    return (packed(qs, rows, -1), torch.from_numpy(ql).to(dev).view(-1, 1),
+            packed(cs, int(cl.max()), 0), torch.from_numpy(cl).to(dev).view(1, -1))
+
+
 def _utf8_main_path(dev, sync, report):
     """Phase 4d: ``LevenshteinDistancesUTF8`` on mixed-script and CJK-wide
     sets, then a malformed collection."""
     import torch
-    from stringzilla_tpu_torch import LevenshteinDistancesUTF8, Tape
+    from stringzilla_tpu_torch import LevenshteinDistancesUTF8
     from stringzilla_tpu_torch.ops import myers as myers_mod
     from stringzilla_tpu_torch.ops.myers import myers, myers_reference
-    from stringzilla_tpu_torch.ops.pack_device import device_tape
     from stringzilla_tpu_torch.ops.tape import dyadic_bucket
-    from stringzilla_tpu_torch.ops.utf8_pack_device import decode_pack_device
 
     sets = _utf8_sets()
     engine = LevenshteinDistancesUTF8()
@@ -2151,18 +2285,8 @@ def _utf8_main_path(dev, sync, report):
         if name == "utf8-cjk":
             _check(min(distinct.values()) > 256, f"{name}: a query block with <= 256 runes")
 
-        def packed_block(texts, rows, fill):
-            raw = [t.encode() for t in texts]
-            dt = device_tape(Tape.from_strings(raw), dev)
-            return decode_pack_device(dt, np.arange(len(raw)), dyadic_bucket(max(map(len, raw))),
-                                      rows, fill=fill)
-
-        rows = -(-int(ql.max()) // 32) * 32
-        cand_len = int(cl.max())
-        packed = (packed_block(qs, rows, -1),
-                  torch.from_numpy(ql.astype(np.int32)).to(dev).view(-1, 1),
-                  packed_block(cs, cand_len, 0),
-                  torch.from_numpy(cl.astype(np.int32)).to(dev).view(1, -1))
+        packed = utf8_block(qs, cs, dev)
+        (rows, _), (cand_len, _) = packed[0].shape, packed[2].shape
         plain = myers_reference(*packed, alphabet=None)
         _check(np.array_equal(res.astype(np.int64), plain.cpu().numpy()),
                f"{name}: engine result != plain version on the card")
@@ -2173,15 +2297,33 @@ def _utf8_main_path(dev, sync, report):
         print(f"[engine] {name}: {len(qs)}x{len(cs)} equals the plain version and "
               f"Wagner-Fischer over runes on 16 pairs")
 
+        # one engine call builds each query block's rune tables once
+        _reset(myers_mod.TABLE_BUILDS)
+        engine._device_scores(qs, cs)
+        builds = myers_mod.TABLE_BUILDS["rune_tables"]
+        print(f"[engine] {name}: {builds} rune table builds in one engine call, "
+              f"{len(distinct)} query blocks")
+        _check(builds == len(distinct), f"{name}: {builds} rune table builds for "
+               f"{len(distinct)} query blocks")
+
         cells = ql.sum() * cl.sum()
         word_steps = np.ceil(ql / 64).sum() * cl.sum()
         nbytes = 4.0 * (rows * len(qs) + cand_len * len(cs) + len(qs) * len(cs))
-        t0 = time.perf_counter()
         engine_runs = 3
+        t0 = time.perf_counter()
+        for _ in range(engine_runs):
+            engine._device_scores(qs, cs)
+            sync()
+        device_s = (time.perf_counter() - t0) / engine_runs
+        t0 = time.perf_counter()
         for _ in range(engine_runs):
             engine(qs, cs)
         engine_s = (time.perf_counter() - t0) / engine_runs
-        kernel_ms = _time_ms(lambda: myers(*packed, alphabet=None), 10, sync)
+        # the kernel alone: its raw launch, the rune tables built beforehand
+        launch, out = rune_launch(packed, dev)
+        kernel_ms = _time_ms(launch, 10, sync)
+        _check(torch.equal(out, plain), f"{name}: raw rune kernel != plain version")
+        wrapper_ms = _time_ms(lambda: myers(*packed, alphabet=None), 10, sync)
         plain_ms = _time_ms(lambda: myers_reference(*packed, alphabet=None), 1, sync,
                             batches=1)
         _profile(name, lambda: engine(qs, cs), sync, kernel_ms)
@@ -2191,10 +2333,22 @@ def _utf8_main_path(dev, sync, report):
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         print(f"[perf] {name} rows={rows} cand_len={cand_len} cells={cells:.0f}: "
               f"engine+pull {engine_s * 1e3:.3f} ms = {cells / engine_s / 1e9:.3f} GCUPS; "
-              f"{tier} {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
-              f"{cells / kernel_ms / 1e6:.3f} GCUPS; "
+              f"engine to device result {device_s * 1e3:.3f} ms; "
+              f"{tier} {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] raw launch = "
+              f"{cells / kernel_ms / 1e6:.3f} GCUPS; the myers wrapper (its tables built "
+              f"each call) {wrapper_ms:.4f} ms [{wrapper_ms.lo:.4f}-{wrapper_ms.hi:.4f}]; "
               f"plain {plain_ms:.3f} ms = {cells / plain_ms / 1e6:.3f} GCUPS; "
               f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of it")
+        timed = _engine_runes(engine, qs, cs, dev, sync)
+        for k in ("myers_tier_a_runes", "myers_tier_b_runes"):
+            mine = [t for t in timed if t[0] == k]
+            if mine:
+                ms, bound = sum(t[4] for t in mine), sum(t[5] for t in mine)
+                print(f"[perf] {name}: the engine's own {k} launches: {len(mine)}, kernel "
+                      f"{ms:.4f} ms summed by CUDA events ("
+                      + ", ".join(f"{r} rows {q}x{c}" + (f" S={g}" if g else "") + f" {t:.4f}"
+                                  for _, r, q, c, t, _, g in mine)
+                      + f"); bound {bound:.4f} ms summed, {100 * bound / ms:.1f}% of it")
 
     # A malformed collection: its strings are decoded on the host, each
     # maximal invalid subpart becoming U+FFFD, then scored on the card.

@@ -54,12 +54,51 @@
 // builds each step's match mask by comparing the candidate rune with every
 // query rune; a 2^21-row PEQ per query would not fit anywhere. Instead each
 // query brings its K <= m distinct runes, sorted, and a PEQ of K x W words
-// (the distinct-rune compression): a candidate rune finds its row by binary
-// search over the query's runes in shared memory (<= 256 for tier A, <= 4096
-// for tier B), and a rune that is not there matches nothing. The recurrence
-// is the byte route's; the kRunes = false instantiations are the byte route
-// itself. Memory stays O(sum K_q * W_q), whatever the script.
+// (the distinct-rune compression, built once a query block by the host:
+// ops/myers.py rune_tables), and a candidate rune finds its row in one probe
+// of a hash table of the query's runes in shared memory; a rune that is not
+// there matches nothing. The recurrence is the byte route's; the kRunes =
+// false instantiations are the byte route itself. Memory stays
+// O(sum K_q * W_q), whatever the script.
 //
+// The rune table (ops/myers.py rune_table and rune_probe are its plain
+// numpy version, the same hash, slot count and probe):
+//   * layout: open addressing with linear probing, one 64-bit slot a rune,
+//     its low word the rune's 32 bits and its high word its PEQ row. A
+//     lookup is one 8-byte shared load and a compare where a binary search
+//     over 256 (tier A) or 4,096 (tier B) sorted runes was up to 9 or 13
+//     dependent loads, each behind a compare and two selects;
+//   * slots: the power of two at least 128 * words (>= 2 K, since K <= m
+//     <= 64 * words): the table is at most half full, and its size comes
+//     from the block's words with no pull of K. Tier A holds <= 256 runes
+//     in <= 512 slots (4 KB, static); tier B <= 4,096 in <= 8,192 (64 KB,
+//     dynamic shared memory above 48 KB);
+//   * hash: Fibonacci (multiplicative) on the rune's 32 bits, the top
+//     log2(slots) bits of rune * 0x9E3779B9: runs of consecutive code points
+//     (a script's block) and multiples of a power of two land spread out;
+//   * empty slot: row -1 (all ones). Every int32 is a possible rune, so no
+//     rune value can mark it; a rune -1 in an empty slot's low word still
+//     misses, since the row says empty;
+//   * build: each CTA's prologue, its threads inserting the query's sorted
+//     runes with atomicCAS on the packed slot. Which rune of a cluster takes
+//     which slot depends on the order, but the occupied slots and every
+//     lookup's answer do not (linear probing with no deletions);
+//   * probe bound: a lookup reads at most the length of its cluster (the
+//     run of occupied slots it starts in) plus one slots. At half load with
+//     keys that hash evenly the expected probe is ~1.5 slots for a rune that
+//     is there and ~2.5 for one that is not (Knuth); runes chosen to share a
+//     home slot make a cluster of up to K, a slower lookup and the same
+//     answer (tests/test_torch_rune_table.py bounds the longest cluster on
+//     CJK runs, multiples of the slot count and random runes).
+// Tier A pipelines a pair's steps: step j runs the recurrence on char j's
+// match words while it reads char j + 1's (its row found during step j - 1),
+// probes for char j + 2's row and loads char j + 7 from memory, so no step
+// waits on a load even where a block has too few pairs to hide latency by
+// other warps (the engine's CJK blocks of 11-23 queries); a rune that is not
+// there reads a zero row. Tier B looks each char up once, a chunk ahead:
+// lane l of a segment probes for the char j0 + l it loads anyway, two chunks
+// ahead, and a step takes its row by the one shuffle that carried the char.
+
 // Exactness notes: all state is uint64_t (a signed >> would smear the
 // cross-word top bit); a query char outside [0, 256) is never in the PEQ,
 // and a candidate char outside it matches nothing; bits at or above the
@@ -79,8 +118,6 @@ constexpr int kAlphabet = 256;
 constexpr int kThreadsA = 256;  // tier A: one candidate per thread
 constexpr int kWarpsB = 8;      // tier B: warps a CTA, fewer when the candidates are few
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxRunesB = 64 * 64;  // tier B: a query's distinct runes, <= 4096
-
 __device__ __forceinline__ uint64_t low_bits(int count) {  // count in [0, 64]
   return count >= 64 ? ~0ull : ((1ull << count) - 1ull);
 }
@@ -89,16 +126,76 @@ __device__ __forceinline__ int clamp_int(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// Row of rune c among a query's `count` sorted distinct runes, or -1.
-__device__ __forceinline__ int find_rune(const int32_t* keys, int count, int32_t c) {
-  int lo = 0;
-  for (int n = count; n > 0;) {
-    const int half = n >> 1;
-    const bool right = keys[lo + half] < c;
-    lo = right ? lo + half + 1 : lo;
-    n = right ? n - half - 1 : half;
+// The rune table (see the header): log2 of the slots of a block of `words`
+// words, the power of two at least 128 * words, and the slot that marks empty.
+__host__ __device__ constexpr int table_bits(int words) {
+  int bits = 7;
+  while ((1 << bits) < 128 * words) ++bits;
+  return bits;
+}
+constexpr unsigned long long kEmptySlot = ~0ull;  // row -1
+constexpr uint32_t kFibonacci = 0x9E3779B9u;
+
+__device__ __forceinline__ unsigned home_slot(int32_t c, int bits) {
+  return (static_cast<uint32_t>(c) * kFibonacci) >> (32 - bits);
+}
+
+// Fills a table of 2^bits slots with the `count` runes keys[0 .. count),
+// rune i on row i, by all the CTA's threads; ends with __syncthreads().
+__device__ void build_table(unsigned long long* table, int bits, const int32_t* keys, int count) {
+  const int slots = 1 << bits;
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) table[i] = kEmptySlot;
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int32_t c = keys[i];
+    const unsigned long long v =
+        (static_cast<unsigned long long>(i) << 32) | static_cast<uint32_t>(c);
+    unsigned h = home_slot(c, bits);
+    while (atomicCAS(table + h, kEmptySlot, v) != kEmptySlot) h = (h + 1) & (slots - 1);
   }
-  return (lo < count && keys[lo] == c) ? lo : -1;
+  __syncthreads();
+}
+
+// The row of the slot s read at h for rune c, or -1 for a rune not in the
+// table: s answers unless it holds another rune, then the probe goes on.
+__device__ __forceinline__ int resolve_slot(const unsigned long long* table, int bits,
+                                            int32_t c, unsigned h, unsigned long long s) {
+  for (;;) {
+    const int row = static_cast<int>(s >> 32);
+    if (row < 0 || static_cast<uint32_t>(s) == static_cast<uint32_t>(c)) return row;
+    h = (h + 1) & ((1u << bits) - 1u);
+    s = table[h];
+  }
+}
+
+__device__ __forceinline__ int find_row(const unsigned long long* table, int bits, int32_t c) {
+  const unsigned h = home_slot(c, bits);
+  return resolve_slot(table, bits, c, h, table[h]);
+}
+
+// One step of the recurrence on a pair's W words, eq_of(w) its char's match
+// word w.
+template <int W, typename Eq>
+__device__ __forceinline__ void tier_a_step(uint64_t (&vp)[W], uint64_t (&vn)[W], Eq eq_of) {
+  uint64_t carry = 0, ph_in = 1, mh_in = 0;  // word 0 takes D[0][j] = j
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint64_t eq = eq_of(w);
+    const uint64_t xv = eq | vn[w];
+    const uint64_t t = eq & vp[w];
+    const uint64_t s1 = t + vp[w];
+    const uint64_t s = s1 + carry;
+    carry = static_cast<uint64_t>((s1 < t) | (s < s1));
+    const uint64_t xh = (s ^ vp[w]) | eq;
+    const uint64_t ph = vn[w] | ~(xh | vp[w]);
+    const uint64_t mh = vp[w] & xh;
+    const uint64_t phs = (ph << 1) | ph_in;
+    const uint64_t mhs = (mh << 1) | mh_in;
+    ph_in = ph >> 63;
+    mh_in = mh >> 63;
+    vp[w] = mhs | ~(xv | phs);
+    vn[w] = phs & xv;
+  }
 }
 
 // One thread per (query, candidate); the query's W-word state in registers.
@@ -110,22 +207,26 @@ myers_tier_a(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_o
              const uint64_t* __restrict__ peq, const int32_t* __restrict__ qlens,
              const int32_t* __restrict__ cands_t, const int32_t* __restrict__ clens,
              int cand_len, int nc, int cand_blocks, int32_t* __restrict__ out) {
-  __shared__ uint64_t speq[kAlphabet * W];
-  __shared__ int32_t skeys[kRunes ? kAlphabet : 1];
+  // runes: row kAlphabet stays zero, the row of a rune not in the query
+  __shared__ uint64_t speq[(kAlphabet + (kRunes ? 1 : 0)) * W];
+  constexpr int kBits = kRunes ? table_bits(W) : 0;
+  __shared__ unsigned long long stable[kRunes ? 1 << kBits : 1];
   const int q = blockIdx.x / cand_blocks;
   const int cand = (blockIdx.x % cand_blocks) * kThreadsA + threadIdx.x;
-  int n_keys = 0;
   if constexpr (kRunes) {
     const int first = key_offs[q];
-    n_keys = key_offs[q + 1] - first;
+    // a query of <= 64 W chars has no more runes: the clamp keeps tables
+    // that say otherwise inside speq and the table's half load (no endless probe)
+    const int n_keys = clamp_int(key_offs[q + 1] - first, 0, 64 * W);
     const uint64_t* qpeq = peq + static_cast<size_t>(first) * W;
-    for (int i = threadIdx.x; i < n_keys; i += kThreadsA) skeys[i] = keys[first + i];
     for (int i = threadIdx.x; i < n_keys * W; i += kThreadsA) speq[i] = qpeq[i];
+    if (threadIdx.x < W) speq[kAlphabet * W + threadIdx.x] = 0;
+    build_table(stable, kBits, keys + first, n_keys);
   } else {
     const uint64_t* qpeq = peq + static_cast<size_t>(q) * kAlphabet * W;
     for (int i = threadIdx.x; i < kAlphabet * W; i += kThreadsA) speq[i] = qpeq[i];
+    __syncthreads();
   }
-  __syncthreads();
   if (cand >= nc) return;
 
   const int m = clamp_int(qlens[q], 0, 64 * W);
@@ -138,33 +239,44 @@ myers_tier_a(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_o
     vn[w] = 0;
   }
   const int32_t* col = cands_t + cand;
-  for (int j = 0; j < n; ++j) {
-    // the match table's row of candidate char j, or an out-of-range row
-    unsigned c;
-    if constexpr (kRunes) {
-      const int row = find_rune(skeys, n_keys, col[static_cast<size_t>(j) * nc]);
-      c = row < 0 ? ~0u : static_cast<unsigned>(row);
-    } else {
-      c = static_cast<unsigned>(col[static_cast<size_t>(j) * nc]);
-    }
-    uint64_t carry = 0, ph_in = 1, mh_in = 0;  // word 0 takes D[0][j] = j
+  if constexpr (kRunes) {
+    // A pipeline of four stages, so a step waits on no load: step j runs
+    // the recurrence on char j's match words while it reads char j + 1's
+    // (its row found a step before), probes for char j + 2's row, and loads
+    // char j + 3 + kAhead from memory; a row of none is the zero row.
+    constexpr int kAhead = 4;
+    const auto char_at = [&](int j) { return j < n ? col[static_cast<size_t>(j) * nc] : 0; };
+    const auto row_of = [](int r) { return static_cast<unsigned>(r < 0 ? kAlphabet : r); };
+    int32_t ahead[kAhead];  // chars j + 3 .. j + 2 + kAhead
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const uint64_t eq = c < kAlphabet ? speq[c * W + w] : 0ull;
-      const uint64_t xv = eq | vn[w];
-      const uint64_t t = eq & vp[w];
-      const uint64_t s1 = t + vp[w];
-      const uint64_t s = s1 + carry;
-      carry = static_cast<uint64_t>((s1 < t) | (s < s1));
-      const uint64_t xh = (s ^ vp[w]) | eq;
-      const uint64_t ph = vn[w] | ~(xh | vp[w]);
-      const uint64_t mh = vp[w] & xh;
-      const uint64_t phs = (ph << 1) | ph_in;
-      const uint64_t mhs = (mh << 1) | mh_in;
-      ph_in = ph >> 63;
-      mh_in = mh >> 63;
-      vp[w] = mhs | ~(xv | phs);
-      vn[w] = phs & xv;
+    for (int k = 0; k < kAhead; ++k) ahead[k] = char_at(3 + k);
+    int32_t c2 = char_at(2);
+    const unsigned row0 = row_of(find_row(stable, kBits, char_at(0)));
+    unsigned row_next = row_of(find_row(stable, kBits, char_at(1)));
+    uint64_t eq[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) eq[w] = speq[row0 * W + w];
+    for (int j = 0; j < n; ++j) {
+      uint64_t eq_next[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) eq_next[w] = speq[row_next * W + w];
+      const unsigned h = home_slot(c2, kBits);
+      const unsigned long long slot = stable[h];
+      const int32_t far = char_at(j + 3 + kAhead);
+      tier_a_step<W>(vp, vn, [&](int w) { return eq[w]; });
+      row_next = row_of(resolve_slot(stable, kBits, c2, h, slot));
+      c2 = ahead[0];
+#pragma unroll
+      for (int k = 0; k + 1 < kAhead; ++k) ahead[k] = ahead[k + 1];
+      ahead[kAhead - 1] = far;
+#pragma unroll
+      for (int w = 0; w < W; ++w) eq[w] = eq_next[w];
+    }
+  } else {
+    for (int j = 0; j < n; ++j) {
+      // the match table's row of candidate char j, or an out-of-range row
+      const unsigned c = static_cast<unsigned>(col[static_cast<size_t>(j) * nc]);
+      tier_a_step<W>(vp, vn, [&](int w) { return c < kAlphabet ? speq[c * W + w] : 0ull; });
     }
   }
   int delta = 0;
@@ -182,7 +294,8 @@ myers_tier_a(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_o
 // registers; across lanes, the run's generate/propagate bits and its top
 // word's top bits go by ballots cut to the segment.
 template <int S, int L, bool kRunes>
-__device__ void tier_b_run(const int32_t* skeys, int n_keys, const uint64_t* __restrict__ qpeq,
+__device__ void tier_b_run(const unsigned long long* table, int bits, int n_keys,
+                           const uint64_t* __restrict__ qpeq,
                            int words, int m, int W, const int32_t* __restrict__ cands_t,
                            const int32_t* __restrict__ clens, const int32_t* __restrict__ order,
                            int cand_len, int nc, int slot0, int32_t* __restrict__ out) {
@@ -205,28 +318,31 @@ __device__ void tier_b_run(const int32_t* skeys, int n_keys, const uint64_t* __r
   }
   // Candidate chars a chunk of S steps at a time, a chunk ahead: lane l
   // of a segment holds char j0 + l of its candidate; a step takes its char
-  // by one shuffle, so the PEQ read never waits on a char load.
+  // by one shuffle, so the PEQ read never waits on a char load. Runes: the
+  // lane holds the char's row instead, looked up once when the char arrives
+  // (the chars come two chunks ahead, `far`), so a step shuffles a row; past
+  // a candidate's end the char is 0 and its row U+0000's, which `live`
+  // keeps from changing the state.
   const int32_t* col = cands_t + cand;
   const auto chars_at = [&](int j0) {
     const int j = j0 + sl;
     return j < n ? __ldg(col + static_cast<size_t>(j) * nc) : 0;
   };
-  // The run's PEQ words of a candidate char: a byte's row, or the rune's
-  // row found by binary search (a rune not in the query matches nothing).
+  const auto row_of = [&](int c) {
+    if constexpr (kRunes) return find_row(table, bits, c);
+    else return c;
+  };
+  // The run's PEQ words of a row: a byte's, or a rune's (-1: a rune not in
+  // the query matches nothing).
   const unsigned rows = kRunes ? static_cast<unsigned>(n_keys) : static_cast<unsigned>(kAlphabet);
   const auto load_eq = [&](int c, uint64_t* e) {
-    unsigned row;
-    if constexpr (kRunes) {
-      const int r = find_rune(skeys, n_keys, c);
-      row = r < 0 ? ~0u : static_cast<unsigned>(r);
-    } else {
-      row = static_cast<unsigned>(c);
-    }
+    const unsigned row = static_cast<unsigned>(c);
     const uint64_t* p = qpeq + static_cast<size_t>(row < rows ? row : 0) * words + w0;
 #pragma unroll
     for (int k = 0; k < L; ++k) e[k] = row < rows && w0 + k < W ? __ldg(p + k) : 0ull;
   };
-  int cur = chars_at(0), nxt = chars_at(S);
+  int far = kRunes ? chars_at(2 * S) : 0;
+  int cur = row_of(chars_at(0)), nxt = row_of(chars_at(S));
   load_eq(__shfl_sync(kFull, cur, shift), eq);
 
   // Step j with the match words eq; those of step j + 1 (char u + 1 of the
@@ -299,7 +415,12 @@ __device__ void tier_b_run(const int32_t* skeys, int n_keys, const uint64_t* __r
         if (j0 + u < n_hi) step(u, j0 + u, std::true_type{});
     }
     cur = nxt;
-    nxt = chars_at(j0 + 2 * S);
+    if constexpr (kRunes) {
+      nxt = row_of(far);
+      far = chars_at(j0 + 3 * S);
+    } else {
+      nxt = chars_at(j0 + 2 * S);
+    }
   }
   int delta = 0;
 #pragma unroll
@@ -318,6 +439,8 @@ __device__ void tier_b_run(const int32_t* skeys, int n_keys, const uint64_t* __r
 // run the block needs (the host's words / S, rounded up to 1, 2, 4 or 8), so
 // that a block of short queries is not held to the registers of the longest
 // run.
+// Runes: the query's table in dynamic shared memory, 2^table_bits(words)
+// slots (launch_b sizes it).
 template <int S, int kMaxRun, bool kRunes>
 __global__ void __launch_bounds__(32 * kWarpsB)
 myers_tier_b(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_offs,
@@ -325,15 +448,15 @@ myers_tier_b(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_o
              const int32_t* __restrict__ qlens, const int32_t* __restrict__ cands_t,
              const int32_t* __restrict__ clens, const int32_t* __restrict__ order, int cand_len,
              int nc, int cand_blocks, int32_t* __restrict__ out) {
-  __shared__ int32_t skeys[kRunes ? kMaxRunesB : 1];
+  extern __shared__ unsigned long long table[];
   const int q = blockIdx.x / cand_blocks;
+  const int bits = kRunes ? table_bits(words) : 0;
   int n_keys = 0;
   const uint64_t* qpeq;
   if constexpr (kRunes) {
     const int first = key_offs[q];
-    n_keys = key_offs[q + 1] - first;
-    for (int i = threadIdx.x; i < n_keys; i += blockDim.x) skeys[i] = keys[first + i];
-    __syncthreads();  // before any warp leaves
+    n_keys = clamp_int(key_offs[q + 1] - first, 0, 64 * words);  // as in tier A
+    build_table(table, bits, keys + first, n_keys);  // ends in __syncthreads(), before any warp leaves
     qpeq = peq + static_cast<size_t>(first) * words;
   } else {
     qpeq = peq + static_cast<size_t>(q) * kAlphabet * words;
@@ -346,8 +469,8 @@ myers_tier_b(const int32_t* __restrict__ keys, const int32_t* __restrict__ key_o
   const int run = min((W + S - 1) / S, kMaxRun);
   int32_t* row = out + static_cast<size_t>(q) * nc;
 #define SZ_TIER_B(L)                                                                             \
-  tier_b_run<S, L, kRunes>(skeys, n_keys, qpeq, words, m, W, cands_t, clens, order, cand_len, nc, \
-                           slot0, row)
+  tier_b_run<S, L, kRunes>(table, bits, n_keys, qpeq, words, m, W, cands_t, clens, order,        \
+                           cand_len, nc, slot0, row)
   if constexpr (kMaxRun == 1) {
     SZ_TIER_B(1);
   } else if constexpr (kMaxRun == 2) {
@@ -399,17 +522,26 @@ cudaError_t launch_b(const int32_t* keys, const int32_t* key_offs, const uint64_
   const dim3 grid(static_cast<unsigned>(blocks));
   const int cb = static_cast<int>(cand_blocks);
   const int max_run = (words + S - 1) / S;
-#define SZ_TIER_B(R)                                                                        \
-  myers_tier_b<S, R, kRunes><<<grid, 32 * warps, 0, stream>>>(keys, key_offs, peq, words, qlens, \
-                                                              cands_t, clens, order, cand_len,  \
-                                                              nc, cb, out)
-  if (max_run <= 1) SZ_TIER_B(1);
-  else if constexpr (S == 32) SZ_TIER_B(2);
-  else if (max_run <= 2) SZ_TIER_B(2);
-  else if (max_run <= 4) SZ_TIER_B(4);
-  else SZ_TIER_B(8);
-#undef SZ_TIER_B
-  return cudaGetLastError();
+  // runes: the table's 8-byte slots, past 48 KB only once allowed
+  const int table_bytes = kRunes ? 8 << table_bits(words) : 0;
+  const auto run_b = [&](auto kernel) {
+    if (table_bytes > 48 * 1024) {
+      const cudaError_t set = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, table_bytes);
+      if (set != cudaSuccess) return set;
+    }
+    kernel<<<grid, 32 * warps, table_bytes, stream>>>(keys, key_offs, peq, words, qlens, cands_t,
+                                                      clens, order, cand_len, nc, cb, out);
+    return cudaGetLastError();
+  };
+  if (max_run <= 1) return run_b(myers_tier_b<S, 1, kRunes>);
+  if constexpr (S == 32) {
+    return run_b(myers_tier_b<S, 2, kRunes>);
+  } else {
+    if (max_run <= 2) return run_b(myers_tier_b<S, 2, kRunes>);
+    if (max_run <= 4) return run_b(myers_tier_b<S, 4, kRunes>);
+    return run_b(myers_tier_b<S, 8, kRunes>);
+  }
 }
 
 template <bool kRunes>

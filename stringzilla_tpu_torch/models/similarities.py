@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.memory import lookup_transform
-from ..ops.myers import myers
+from ..ops.myers import build_rune_tables, myers
 from ..ops.pack_device import DeviceTape, device_tape, pack_chars
 from ..ops.similarity import (AffineGaps, ClassCosts, LinearGaps,
                               SimilarityConfig, UniformCosts)
@@ -359,16 +359,24 @@ class _CrossProductEngine:
                                   shift=True))
                     for q_bucket, q_idx in _group_dyadic(qc.lens).items()
                     if q_bucket <= _LONG_THRESHOLD]
+        # Myers over runes: each query block's rune tables once, for every
+        # candidate block (None on the CPU, whose plain version reads none)
+        runes = unit and self._utf8
+        tables = [build_rune_tables(q_t, qlens.view(-1, 1)) if runes else None
+                  for _, (q_t, qlens) in q_blocks]
         for c_bucket, c_idx in _group_dyadic(cc.lens).items():
             if c_bucket > _LONG_THRESHOLD or not q_blocks:
                 continue
             block_j, lens_j = cc.pack(c_idx, c_bucket, fill=0)
             c_rows = torch.from_numpy(c_idx).to(dev)[None, :]
-            for q_rows, (q_t, qlens) in q_blocks:
+            for (q_rows, (q_t, qlens)), q_tables in zip(q_blocks, tables):
                 args = (q_t, qlens.view(-1, 1), block_j, lens_j.view(1, -1))
-                result[q_rows, c_rows] = (myers(*args, alphabet=None if self._utf8 else 256)
-                                          if unit else
-                                          similarity(*args, self._cfg, table))
+                if not unit:
+                    result[q_rows, c_rows] = similarity(*args, self._cfg, table)
+                elif runes:
+                    result[q_rows, c_rows] = myers(*args, alphabet=None, rune_tables=q_tables)
+                else:
+                    result[q_rows, c_rows] = myers(*args)
         return result
 
     def _device_scores(self, queries, candidates=None,

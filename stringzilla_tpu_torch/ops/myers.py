@@ -21,8 +21,11 @@ With ``alphabet=None`` chars are runes (UTF-32 code points, or any int32
 values; the JAX kernel's ``alphabet=None``): equal values match, U+0000
 included, and the query padding -1 lies past the query's end. The kernel
 then reads each query's sorted distinct runes and a match table of one row
-per distinct rune (``_rune_peq``), and finds a candidate rune's row by
-binary search; the plain version compares runes directly.
+per distinct rune (``build_rune_tables``, which a caller may run once for
+a query block and pass to every call on it), and finds a candidate rune's row
+in a hash table of the query's runes that each CTA builds in shared memory
+(``rune_table`` and ``rune_probe`` are its plain numpy version); the plain
+version compares runes directly.
 
 Per candidate char the recurrence is
 
@@ -41,11 +44,13 @@ tensors and the plain PyTorch version ``myers_reference`` on CPU tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import cuda_build
 
-__all__ = ["myers", "myers_reference", "tier_b_plan", "KERNEL_LAUNCHES", "MAX_ROWS",
+__all__ = ["myers", "myers_reference", "build_rune_tables", "rune_table", "rune_probe",
+           "rune_table_bits", "tier_b_plan", "KERNEL_LAUNCHES", "TABLE_BUILDS", "MAX_ROWS",
            "TIER_B_SEGMENTS", "TIER_B_WIDEN_BELOW"]
 
 MAX_ROWS = 4096  # longer queries wait for the wavefront tier
@@ -54,6 +59,8 @@ _TIER_A_WORDS = 4  # csrc/myers.cu keeps up to 4 words per thread in registers
 # Launches of each CUDA kernel, counted where the wrapper launches it.
 KERNEL_LAUNCHES = {"myers_tier_a": 0, "myers_tier_b": 0,
                    "myers_tier_a_runes": 0, "myers_tier_b_runes": 0}
+# Rune match tables built for the kernel (``build_rune_tables``).
+TABLE_BUILDS = {"rune_tables": 0}
 
 _INT64_MIN = -(1 << 63)
 # Bit k as an int64 value (bit 63 is INT64_MIN), and the masks of bits [0, k).
@@ -106,6 +113,18 @@ def _check(q_t, qlens, cands_t, clens, alphabet):
                          f"{tuple(qlens.shape)} and {tuple(clens.shape)}")
 
 
+def _check_tables(tables, nq: int, words: int, device) -> None:
+    """Raises unless ``tables`` are ``build_rune_tables``' of a block of
+    ``nq`` queries and ``words`` words on ``device``."""
+    keys, key_offs, peq = tables
+    for name, t, dtype in (("keys", keys, torch.int32), ("key_offs", key_offs, torch.int32),
+                           ("peq", peq, torch.int64)):
+        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(f"rune_tables' {name} must be contiguous {dtype} on {device}")
+    if key_offs.shape != (nq + 1,) or peq.dim() != 2 or peq.shape[1] != words:
+        raise ValueError(f"rune_tables are not of a block of {nq} queries and {words} words")
+
+
 def _peq(q_t: torch.Tensor, qlens: torch.Tensor, words: int) -> torch.Tensor:
     """``(n_queries, 256, words)`` int64 match table; chars past a query's
     length and values outside ``[0, 256)`` (the -1 padding) set no bit."""
@@ -147,6 +166,71 @@ def _rune_peq(q_t: torch.Tensor, qlens: torch.Tensor, words: int):
     # Distinct bits of one word never carry, so summing them is OR-ing them.
     peq.index_put_((row * words + i // 64,), bits, accumulate=True)
     return keys, key_offs, peq.view(-1, words)
+
+
+def build_rune_tables(q_t: torch.Tensor, qlens: torch.Tensor):
+    """The rune route's tables of a query block, ``(keys, key_offs, peq)``
+    (``_rune_peq`` at the block's words), to pass to every ``myers`` call
+    on the block as ``rune_tables``; None for CPU tensors, whose plain
+    version reads no tables. Each build is counted in ``TABLE_BUILDS``."""
+    if q_t.device.type == "cpu":
+        return None
+    TABLE_BUILDS["rune_tables"] += 1
+    return _rune_peq(q_t, qlens, words_of(q_t.shape[0]))
+
+
+# csrc/myers.cu's rune table: open addressing with linear probing, 2^bits
+# slots (the power of two at least 128 * words, so at most half full), a
+# rune's home slot the top bits of its 32 bits times the Fibonacci constant,
+# an empty slot marked by row -1.
+RUNE_HASH = 0x9E3779B9
+
+
+def rune_table_bits(words: int) -> int:
+    """log2 of the rune table's slots for a block of ``words`` words."""
+    return max(7, (128 * words - 1).bit_length())
+
+
+def _home(runes, bits: int) -> np.ndarray:
+    c = np.asarray(runes, np.int64) & 0xFFFFFFFF
+    return ((c * RUNE_HASH) & 0xFFFFFFFF) >> (32 - bits)
+
+
+def rune_table(keys, bits: int, order=None):
+    """Plain version of the kernel's table of the distinct runes ``keys``
+    (rune i on row i), inserted in ``order`` (rows, by default 0, 1, ...;
+    the kernel's threads race): ``(slot_runes, slot_rows)``, int64 arrays
+    of ``2^bits`` slots, row -1 where empty."""
+    keys = np.asarray(keys, np.int64)
+    slots = 1 << bits
+    if 2 * len(keys) > slots:
+        raise ValueError(f"{len(keys)} runes need more than {slots} slots")
+    slot_runes = np.full(slots, -1, np.int64)
+    slot_rows = np.full(slots, -1, np.int64)
+    homes = _home(keys, bits)
+    for row in (range(len(keys)) if order is None else order):
+        h = int(homes[row])
+        while slot_rows[h] >= 0:
+            h = (h + 1) & (slots - 1)
+        slot_runes[h], slot_rows[h] = keys[row], row
+    return slot_runes, slot_rows
+
+
+def rune_probe(table, runes):
+    """The kernel's lookup of each of ``runes`` in ``rune_table``'s
+    ``table``: ``(rows, reads)``, int64 arrays of each rune's row (-1 where
+    it is not there) and the slots its probe read."""
+    slot_runes, slot_rows = table
+    mask = len(slot_rows) - 1
+    runes = np.asarray(runes, np.int64)
+    h = _home(runes, mask.bit_length())
+    reads = np.ones(len(runes), np.int64)
+    going = (slot_rows[h] >= 0) & (slot_runes[h] != runes)
+    while going.any():
+        h = np.where(going, (h + 1) & mask, h)
+        reads += going
+        going &= (slot_rows[h] >= 0) & (slot_runes[h] != runes)
+    return slot_rows[h], reads
 
 
 def _rune_eq(q_t: torch.Tensor, qlens: torch.Tensor, c: torch.Tensor, words: int):
@@ -240,10 +324,12 @@ def myers_reference(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
     return (n + delta).to(torch.int32)
 
 
-def myers(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
+def myers(q_t, qlens, cands_t, clens, alphabet=256, *, rune_tables=None) -> torch.Tensor:
     """All-pairs unit-cost edit distances ``(n_queries, n_cands) int32``
     over bytes (``alphabet=256``) or runes (``alphabet=None``): the Hopper
-    kernel for CUDA tensors, the plain version for CPU ones."""
+    kernel for CUDA tensors, the plain version for CPU ones. Runes on CUDA
+    take ``rune_tables`` (the query block's ``build_rune_tables(q_t,
+    qlens)``) where the caller built them, or build them here."""
     _check(q_t, qlens, cands_t, clens, alphabet)
     if q_t.device.type == "cpu":
         return myers_reference(q_t, qlens, cands_t, clens, alphabet)
@@ -255,6 +341,10 @@ def myers(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
     if nq == 0 or nc == 0:
         return out
     words = words_of(rows)
+    if alphabet is None:
+        if rune_tables is None:
+            rune_tables = build_rune_tables(q_t, qlens)
+        _check_tables(rune_tables, nq, words, q_t.device)
     tier_b = words > _TIER_A_WORDS
     # tier B takes the candidates by length, so those of a warp end together
     order = torch.argsort(clens.view(-1)).to(torch.int32) if tier_b else None
@@ -267,7 +357,7 @@ def myers(q_t, qlens, cands_t, clens, alphabet=256) -> torch.Tensor:
                 None if order is None else order.data_ptr(), seg, cand_len, nc,
                 out.data_ptr(), stream)
         if alphabet is None:
-            keys, key_offs, peq = _rune_peq(q_t, qlens, words)
+            keys, key_offs, peq = rune_tables
             name = "sz_myers_runes"
             err = lib.sz_myers_runes(keys.data_ptr(), key_offs.data_ptr(),
                                      peq.data_ptr(), *tail)

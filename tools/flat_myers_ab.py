@@ -62,30 +62,6 @@ def _flat_workloads(dev):
             ("long pair", pair, {})]
 
 
-def _cjk_block(dev):
-    """Phase 4d's CJK-wide set as one rune block, packed as the engine packs
-    its blocks."""
-    import torch
-    from stringzilla_tpu_torch import Tape
-    from stringzilla_tpu_torch.ops.pack_device import device_tape
-    from stringzilla_tpu_torch.ops.tape import dyadic_bucket
-    from stringzilla_tpu_torch.ops.utf8_pack_device import decode_pack_device
-
-    (_, qs, cs), = [s for s in chip_smoke._utf8_sets() if s[0] == "utf8-cjk"]
-
-    def packed(texts, rows, fill):
-        raw = [t.encode() for t in texts]
-        dt = device_tape(Tape.from_strings(raw), dev)
-        return decode_pack_device(dt, np.arange(len(raw)), dyadic_bucket(max(map(len, raw))),
-                                  rows, fill=fill)
-
-    ql = np.array([len(q) for q in qs], np.int32)
-    cl = np.array([len(c) for c in cs], np.int32)
-    rows = -(-int(ql.max()) // 32) * 32
-    return (packed(qs, rows, -1), torch.from_numpy(ql).to(dev).view(-1, 1),
-            packed(cs, int(cl.max()), 0), torch.from_numpy(cl).to(dev).view(1, -1))
-
-
 def _time_tree(root: str) -> dict:
     """One run on the tree at ``root`` (its package imported from there)."""
     sys.path.insert(0, root)
@@ -107,8 +83,9 @@ def _time_tree(root: str) -> dict:
             raise RuntimeError(f"{root}: wavefront_batch on the {name} != the plain version")
         times[name] = chip_smoke._time_ms(lambda: wavefront_batch(*args, **kw), 3, sync)
     long_q, long_c = chip_smoke.long_strings()
+    (_, *cjk), = [s for s in chip_smoke._utf8_sets() if s[0] == "utf8-cjk"]
     blocks = [("long block", chip_smoke.myers_block(long_q, long_c, dev), 256),
-              ("cjk-wide runes", _cjk_block(dev), None)]
+              ("cjk-wide runes", chip_smoke.utf8_block(*cjk, dev), None)]
     for name, args, alphabet in blocks:
         got = myers(*args, alphabet=alphabet)
         if not torch.equal(got, myers_reference(*args, alphabet=alphabet)):

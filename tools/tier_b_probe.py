@@ -23,9 +23,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-sys.path.insert(0, os.path.join(HERE, "tools"))
 import chip_smoke  # noqa: E402
-import flat_myers_ab  # noqa: E402
 
 
 def main() -> int:
@@ -50,8 +48,9 @@ def main() -> int:
               flush=True)
 
     long_q, long_c = chip_smoke.long_strings()
+    (_, *cjk), = [s for s in chip_smoke._utf8_sets() if s[0] == "utf8-cjk"]
     blocks = [("long block", chip_smoke.myers_block(long_q, long_c, dev), 256),
-              ("cjk-wide runes", flat_myers_ab._cjk_block(dev), None)]
+              ("cjk-wide runes", chip_smoke.utf8_block(*cjk, dev), None)]
     for name, args, alphabet in blocks:
         want = myers_mod.myers_reference(*args, alphabet=alphabet)
         (rows, nq), (_, nc) = args[0].shape, args[2].shape
