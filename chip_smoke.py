@@ -153,9 +153,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and a 64 MiB haystack whose hits in six chunks race for the early exit
    (three runs); ``ops.utf8_device.validate_count_raw`` against
    ``validate_count_reference`` (both numbers) on
-   ``tests/test_intersect_utf8.py``'s case list, 300 fuzzed buffers and 8
-   MiB of text with violations at CTA and grid-stride edges, a lead cut
-   off at the end, aligned and not. Exact equality.
+   ``tests/test_intersect_utf8.py``'s case list, 300 fuzzed buffers, 12
+   MiB of text with violations at the kernel's CTA, group and grid-stride
+   edges (from ``ops.utf8_device``'s geometry) and a lead cut off at the
+   end, aligned and at offsets 1-15, and ASCII runs with a multi-byte lead
+   or a violation in the last 1-3 bytes of every vector, row (a warp's
+   span), group and CTA span, aligned and not. Exact equality; the
+   kernel's own geometry and mask count (``sz_utf8_geometry``) must be
+   the module's.
 4e. Main path, the buffer tier: ``Str`` on
    ``benches/bench_all.py::bench_find``'s haystack (2**30 random lowercase
    bytes, seed 42, ``XqZwV`` at N - 4096, a 130-byte needle planted twice):
@@ -175,7 +180,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    inverted); on the 256 MiB and the invalid 2 MiB mirrors,
    ``validate_count_raw`` must equal ``validate_count_reference``. Times the
    kernel alone, the ``Str`` call with the mirror cached, the first call
-   with the mirror's copy to the card, and the plain versions.
+   with the mirror's copy to the card, and the plain versions; the UTF-8
+   kernel by raw launch on the blob, a 256 MiB valid mixed-script buffer
+   of an assumed rune mix (``utf8_mixed``, exact against the plain version
+   too) and the log, each beside its bytes bound.
 
 3f. The same for the hash kernels (``csrc/hash.cu``): ``ops.hash_kernel.
    hash_short`` against ``hash_short_reference`` on every length 0-64 at
@@ -341,13 +349,25 @@ UTF8_CJK = (64, 2048)  # 100-400 runes from 3,000 CJK code points
 FIND_CHECK = 4 * 65536 + 777
 FIND_KS = tuple(range(1, 17)) + (17, 130, 5000)
 FIND_RACE = 64 << 20
-UTF8_CHECK = 8 << 20
+UTF8_CHECK = 12 << 20  # over the UTF-8 kernel's grid stride (8.65 MB on 132 SMs)
 # Phase 4e: benches/bench_all.py's bench_find and bench_lookup buffers,
-# bench_utf8_count_device's blob, and a log file
+# bench_utf8_count_device's blob, a mixed-script buffer of the same size,
+# and a log file
 FIND_BYTES = 1 << 30
 LOOKUP_BYTES = 1 << 30
 UTF8_BYTES = 1 << 28
 FILE_BYTES = 1 << 28
+# The mixed-script buffer's runes (first code point, last, weight): ASCII;
+# Latin-1 and Cyrillic; CJK ideographs, kana and punctuation, Hangul (ED
+# leads among them), Devanagari (E0 leads); emoji and CJK extension B (F0).
+# An assumed mix, from no measured corpus: it holds every lead class, and
+# its 3% of 4-byte runes put one in nearly every 512-byte row, so nearly
+# every row takes the kernel's >= F0 step (text with few 4-byte runes,
+# such as most CJK or Cyrillic prose, takes the cheaper step instead).
+UTF8_MIX = [(0x20, 0x7E, 15), (0xC0, 0xFF, 3), (0x400, 0x4FF, 7), (0x4E00, 0x9FFF, 52),
+            (0x3000, 0x30FF, 8), (0xAC00, 0xD7A3, 8), (0x900, 0x97F, 4), (0x1F300, 0x1F64F, 2),
+            (0x20000, 0x2A6DF, 1)]
+UTF8_MIX_PIECE = 16 << 20  # drawn once, repeated
 # Phase 4f: bench_hash_tokens' 2^20 tokens a side, the log file's first
 # 64 MiB split on spaces, bench_crypto_e2e's documents, bench_fill_random's
 # buffer, bench_sha256's tokens and BENCH_NOTES.md's "argsort ~1M words".
@@ -407,9 +427,13 @@ MYERS_OPS_PER_WORD_STEP = 34
 F64_OPS_PER_S = 67e12 / 4
 FINGERPRINT_OPS_PER_STEP = 5
 # int32 ops a haystack byte: the search's SWAR first-byte filter, 9 a
-# 4-byte word; the UTF-8 pass's byte-wise compares and logic, ~36 a word.
+# 4-byte word. The UTF-8 pass has no operations term: every design must
+# read each byte once, but no count of operations is one that every design
+# must do (an all-ASCII 16-byte vector is settled by an OR of its words and
+# a test; the bit-7 classes of csrc/utf8.cu take some 25-40 instructions a
+# multi-byte word, tools/utf8_ab.py --probe, and a design with fewer is not
+# ruled out). Its bound is the bytes read once.
 FIND_OPS_PER_BYTE = 2.25
-UTF8_OPS_PER_BYTE = 9
 # int32 ops of the AES kernels as written: one AESENC is 16 table loads,
 # 16 byte extracts and 16 xors; a sum-lane update 16 byte moves and two
 # 64-bit adds (4 int32 ops); a block absorbed is one of each.
@@ -647,6 +671,25 @@ def _launch_env(dev):
 
     return (torch.cuda.get_device_properties(dev).multi_processor_count,
             torch.cuda.current_stream(dev).cuda_stream)
+
+
+def utf8_launch(mirror, n):
+    """A raw launch of ``sz_utf8_validate_count`` over ``mirror[:n]`` with
+    its output and arguments made beforehand (``_raw_launch``), as
+    ``ops.utf8_device.validate_count_raw`` passes them. The output is the
+    function's ``out``."""
+    import ctypes
+
+    import torch
+    from stringzilla_tpu_torch.ops import utf8_device
+
+    sms, stream = _launch_env(mirror.device)
+    out = torch.empty(2, dtype=torch.int64, device=mirror.device)
+    masks = (ctypes.c_uint32 * len(utf8_device.MASKS))(*utf8_device.MASKS)
+    launch = _raw_launch("sz_utf8_validate_count", mirror.data_ptr(), n, out.data_ptr(), masks,
+                         sms, stream)
+    launch.out, launch.masks = out, masks
+    return launch
 
 
 def _profile(name, fn, sync, kernel_ms):
@@ -2459,8 +2502,12 @@ def _check_find_kernel(dev, sync, max_err):
 
 def _check_utf8_kernel(dev, sync, max_err):
     """Phase 3e: the UTF-8 validation and count pass against its plain version."""
+    import ctypes
+
     import torch
+    from stringzilla_tpu_torch.ops import utf8_device as U
     from stringzilla_tpu_torch.ops.utf8_device import validate_count_raw, validate_count_reference
+    from stringzilla_tpu_torch.utils import cuda_build
 
     rng = np.random.default_rng(SEED + 21)
     err, calls = 0, 0
@@ -2485,23 +2532,49 @@ def _check_utf8_kernel(dev, sync, max_err):
         except UnicodeDecodeError:
             _check(got[0] > 0, f"invalid {buf!r} counted no violation")
 
+    # the kernel's geometry: CTA, group and grid-stride edges from it
+    geometry = (ctypes.c_int * len(U.GEOMETRY))()
+    cuda_build.load().sz_utf8_geometry(geometry)
+    _check(tuple(geometry) == U.GEOMETRY, f"sz_utf8_geometry {tuple(geometry)} != {U.GEOMETRY}")
+    stride = U.grid_stride(torch.cuda.get_device_properties(dev).multi_processor_count)
+    size = max(UTF8_CHECK, stride + 2 * U.CTA_BYTES)
     pieces = [p for p in UTF8_POOL if p.decode("utf-8", "ignore").encode() == p]
-    text = bytearray(b"".join(pieces[int(i)] for i in rng.integers(0, len(pieces), UTF8_CHECK // 2)))
-    stride = 132 * 8 * 4096  # the grid-stride step on 132 SMs
-    edges = [4096 * j + d for j in (1, 2, 100, 1000) for d in (-3, -1, 0, 2)]
-    edges += [stride + d for d in (-2, 0, 1)] + [len(text) - 1]
+    text = bytearray(b"".join(pieces[int(i)] for i in rng.integers(0, len(pieces), size // 2)))
+    edges = [U.CTA_BYTES * j + d for j in (1, 2, 100) for d in (-3, -1, 0, 2)]
+    edges += [U.GROUP_BYTES * 3 + d for d in (-2, 1)]
+    edges += [stride + d for d in (-2, 0, 1)] + [stride + U.GROUP_BYTES - 1, len(text) - 1]
     big = bytes(text)
     for at in edges:
         text[at] = 0x80 if at % 2 else 0xF5
-    for name, buf in (("valid", big), ("violations at CTA and stride edges", bytes(text)),
+    for name, buf in (("valid", big), ("violations at CTA, group and stride edges", bytes(text)),
                       ("cut-off lead at the end", big + b"\xF0\x9F\x8E")):
         mirror = torch.from_numpy(np.frombuffer(buf + bytes(16), np.uint8).copy()).to(dev)
         got = same(mirror, len(buf), f"{len(buf)} bytes {name}")
         _check((got[0] == 0) == (name == "valid"), f"utf8 {name}: violations {got[0]}")
-        same(mirror[1:], len(buf) - 1, f"{len(buf) - 1} bytes {name}, not 16-byte aligned")
+        for k in range(1, 16) if name != "valid" else (1, 7, 15):
+            same(mirror[k:], len(buf) - k, f"{len(buf) - k} bytes {name}, offset {k}")
+    # ASCII with a lead or a violation in the last 1-3 bytes of each span:
+    # the next span's first vector must look back, which the all-ASCII row
+    # branch must not skip
+    spans = {"vector": U.VECTOR_BYTES, "row": U.ROW_BYTES, "group": U.GROUP_BYTES,
+             "CTA": U.CTA_BYTES}
+    tails = [b"\xC3", b"\xE2\x82", b"\xF0\x9F\x8E", b"\xFF", b"\xE0\x80", b"\x80", b"\xE2",
+             b"\xF0", b"\xF8\x88\x80\x80", b"\xC0\x80"]
+    for span_name, span in spans.items():
+        for piece in tails:
+            buf = bytearray(b"y" * (5 * U.CTA_BYTES + 777))
+            for i, end in enumerate(range(span, len(buf) - 8, span)):
+                at = end - 1 - i % 3
+                buf[at: at + len(piece)] = piece
+            mirror = torch.from_numpy(np.frombuffer(bytes(buf) + bytes(32), np.uint8).copy()).to(dev)
+            for k in (0, 5):  # the spans from the aligned start, then 11 bytes on
+                got = same(mirror[k:], len(buf) - k, f"{piece!r} at {span_name} ends, offset {k}")
+                _check(got[0] > 0, f"{piece!r} at {span_name} ends: no violation counted")
     max_err["utf8_validate_count"] = err
     print(f"[kernel] utf8_validate_count: {calls} buffers (the UTF-8 case list, fuzz, "
-          f"{UTF8_CHECK >> 20} MiB with violations at CTA and stride edges) exact")
+          f"{size / 2**20:.2f} MiB with violations at CTA, group and stride edges at offsets "
+          f"0-15, ASCII runs with a lead or a violation ending each vector, row, group and CTA "
+          f"span) exact")
 
 
 def _log_path() -> str:
@@ -2509,8 +2582,18 @@ def _log_path() -> str:
 
 
 def _write_log(path_name) -> bytes:
-    """Writes the FILE_BYTES log of phases 4e and 4f (lines of ~90 bytes,
-    seed SEED + 30) to ``path_name``; returns its bytes. The caller unlinks it."""
+    """Writes the FILE_BYTES log of phases 4e and 4f (``log_body``) to
+    ``path_name``; returns its bytes. The caller unlinks it."""
+    body = log_body()
+    os.makedirs(os.path.dirname(path_name), exist_ok=True)
+    with open(path_name, "wb") as f:
+        f.write(body)
+    return body
+
+
+def log_body() -> bytes:
+    """The FILE_BYTES log of phases 4e and 4f: lines of ~90 bytes, seed
+    SEED + 30, a FATAL line last."""
     lines_rng = np.random.default_rng(SEED + 30)
     levels = np.array([b"INFO", b"WARN", b"DEBUG", b"ERROR"])
     lines = [b"2026-10-17T05:%02d:%02d.%03d %s worker-%d request id=%d took %d ms path=/api/v1/%s\n"
@@ -2521,12 +2604,45 @@ def _write_log(path_name) -> bytes:
                  lines_rng.integers(0, 10**9, 4096), lines_rng.integers(0, 5000, 4096),
                  [b"users", b"orders", "cafés".encode(), "数据".encode()] * 1024)]
     body = b"".join(lines[int(i)] for i in lines_rng.integers(0, 4096, FILE_BYTES // 80))
-    body = (body[: body.index(b"\n", FILE_BYTES) + 1]
+    return (body[: body.index(b"\n", FILE_BYTES) + 1]
             + b"2026-10-17T06:00:00.000 FATAL worker-9 out of memory\n")
-    os.makedirs(os.path.dirname(path_name), exist_ok=True)
-    with open(path_name, "wb") as f:
-        f.write(body)
-    return body
+
+
+def utf8_blob(n: int) -> np.ndarray:
+    """bench_utf8_count_device's blob: n printable ASCII bytes (seed SEED)
+    with a 2-byte "é" every 4096 bytes."""
+    blob = np.random.default_rng(SEED).integers(32, 127, n, dtype=np.uint8)
+    pos = np.arange(1000, n - 2, 4096)
+    blob[pos], blob[pos + 1] = 0xC3, 0xA9
+    return blob
+
+
+def utf8_mixed(n: int) -> np.ndarray:
+    """n bytes of valid mixed-script UTF-8: runes drawn one by one from
+    UTF8_MIX's ranges by weight (seed SEED + 40), a piece of
+    UTF8_MIX_PIECE bytes (at most n) cut after its last whole rune and
+    padded with spaces, repeated, the rest spaces."""
+    rng = np.random.default_rng(SEED + 40)
+    piece = min(UTF8_MIX_PIECE, n)
+    lo, hi, weight = (np.array(c) for c in zip(*UTF8_MIX))
+    kind = rng.choice(len(UTF8_MIX), piece // 2, p=weight / weight.sum())
+    cp = lo[kind] + (rng.random(len(kind)) * (hi - lo + 1)[kind]).astype(np.int64)
+    width = 1 + (cp >= 0x80) + (cp >= 0x800) + (cp >= 0x10000)
+    enc = np.zeros((len(cp), 4), np.uint8)
+    for w, lead in ((1, 0), (2, 0xC0), (3, 0xE0), (4, 0xF0)):
+        sel = width == w
+        c = cp[sel]
+        enc[sel, 0] = lead | (c >> (6 * (w - 1)))
+        for k in range(1, w):
+            enc[sel, k] = 0x80 | ((c >> (6 * (w - 1 - k))) & 0x3F)
+    ends = np.cumsum(width)
+    keep = int(np.searchsorted(ends, piece, side="right"))
+    out = np.full(piece, 0x20, np.uint8)
+    starts = ends[:keep] - width[:keep]
+    for k in range(4):
+        sel = width[:keep] > k
+        out[starts[sel] + k] = enc[:keep][sel, k]
+    return np.concatenate([np.tile(out, n // piece), np.full(n % piece, 0x20, np.uint8)])
 
 
 def _buffer_main_path(dev, sync, report):
@@ -2672,9 +2788,7 @@ def _buffer_main_path(dev, sync, report):
 
     # -- UTF-8 256 MiB -----------------------------------------------------
     n = UTF8_BYTES
-    blob = np.random.default_rng(SEED).integers(32, 127, n, dtype=np.uint8)
-    pos = np.arange(1000, n - 2, 4096)
-    blob[pos], blob[pos + 1] = 0xC3, 0xA9
+    blob = utf8_blob(n)
     bad = bytearray(blob[: 2 << 20].tobytes())
     for p in (17, 70000, 1 << 20):
         bad[p] = 0xFF
@@ -2694,14 +2808,17 @@ def _buffer_main_path(dev, sync, report):
     print(f"[engine] UTF-8 {n >> 20} MiB: {count} runes and valid, as Python decodes it; an invalid "
           f"2 MiB buffer: {bad_count} runes with U+FFFD, as errors='replace' decodes it")
     mirror = s._device()
-    kernel_ms = _time_ms(lambda: validate_count_raw(mirror, n), 10, sync)
+    wrapper_ms = _time_ms(lambda: validate_count_raw(mirror, n), 10, sync)
+    kernel_ms = _time_ms(utf8_launch(mirror, n), 10, sync)
     plain_ms = _time_ms(lambda: validate_count_reference(mirror, n), 1, sync)
     call_ms = _host_ms(lambda: s.utf8_count(), sync)
-    bound_ms, bound_by = _bound(UTF8_OPS_PER_BYTE * n, n)
+    bound_ms, bound_by = _bound(0, n)  # the bytes read once (see FIND_OPS_PER_BYTE)
     print(f"[perf] utf8_count {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
-          f"Str call, mirror cached {call_ms:.3f} ms = {n / call_ms / 1e6:.3f} GB/s; kernel "
-          f"{kernel_ms:.4f} ms = {n / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+          f"Str call, mirror cached {call_ms:.3f} ms = {n / call_ms / 1e6:.3f} GB/s; kernel by raw "
+          f"launch {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
+          f"{n / kernel_ms / 1e6:.3f} GB/s, {100 * bound_ms / kernel_ms:.1f}% of its bound "
+          f"{bound_ms:.4f} ms ({bound_by}); through validate_count_raw {wrapper_ms:.4f} ms; "
+          f"plain {plain_ms:.3f} ms")
     bad_s = szt.Str(bad)
     err = held(validate_count_raw, f"the {n >> 20} MiB and the invalid 2 MiB mirrors", {
         f"{n >> 20} MiB": (mirror, n), "invalid 2 MiB": (bad_s._device(), len(bad))},
@@ -2709,6 +2826,24 @@ def _buffer_main_path(dev, sync, report):
     report["utf8_validate_count"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                          bound_by=bound_by, library_ms=None, max_abs_err=err)
     del s, bad_s, mirror, text, blob
+    # the same kernel on a valid mixed-script buffer (UTF8_MIX, an assumed mix)
+    mixed = utf8_mixed(n)
+    want = len(mixed.tobytes().decode("utf-8"))
+    s = szt.Str(mixed)
+    count = s.utf8_count()
+    _check(count == want, f"Str.utf8_count on {n >> 20} MiB mixed script: {count} != {want}")
+    mirror = s._device()
+    err = held(validate_count_raw, f"the {n >> 20} MiB mixed-script mirror",
+               {"mixed": (mirror, n)}, validate_count_reference)
+    report["utf8_validate_count"]["max_abs_err"] = max(err, report["utf8_validate_count"]
+                                                       ["max_abs_err"])
+    mixed_ms = _time_ms(utf8_launch(mirror, n), 10, sync)
+    call_ms = _host_ms(lambda: s.utf8_count(), sync)
+    print(f"[perf] utf8_count {n >> 20} MiB mixed script, assumed mix ({want} runes, valid): "
+          f"Str call, mirror cached {call_ms:.3f} ms; kernel by raw launch {mixed_ms:.4f} ms "
+          f"[{mixed_ms.lo:.4f}-{mixed_ms.hi:.4f}] = {n / mixed_ms / 1e6:.3f} GB/s, "
+          f"{100 * bound_ms / mixed_ms:.1f}% of its bound {bound_ms:.4f} ms (bytes)")
+    del s, mirror, mixed
 
     # -- a log file ----------------------------------------------------------
     path_name = _log_path()
@@ -2725,6 +2860,13 @@ def _buffer_main_path(dev, sync, report):
                 body.rfind(b"users"))
         _check(got == want, f"File on {len(body)} bytes: {got} != bytes {want}")
         call_ms = _host_ms(lambda: f.find(b"FATAL"), sync)
+        log_ms = _time_ms(utf8_launch(f._device(), len(f)), 10, sync)
+        log_bound = _bound(0, len(f))[0]
+        print(f"[perf] utf8_count {len(body)} bytes of log lines: Str call, mirror cached "
+              f"{_host_ms(lambda: f.utf8_count(), sync):.3f} ms; kernel by raw launch "
+              f"{log_ms:.4f} ms [{log_ms.lo:.4f}-{log_ms.hi:.4f}] = "
+              f"{len(body) / log_ms / 1e6:.3f} GB/s, {100 * log_bound / log_ms:.1f}% of its "
+              f"bound {log_bound:.4f} ms (bytes)")
         fatal = np.frombuffer(b"FATAL", np.uint8)
         kernel_ms = _time_ms(lambda: search_positions(f._device(), len(f), "first",
                                                       needle=fatal), 10, sync)

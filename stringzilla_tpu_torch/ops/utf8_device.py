@@ -22,19 +22,78 @@ The JAX pass returns int32; here both numbers are int64, equal below 2^31.
 ``validate_count_raw`` runs the hand-written Hopper kernel
 (``csrc/utf8.cu``) on CUDA tensors and the plain PyTorch version
 ``validate_count_reference`` on CPU tensors.
+
+The masks of the kernel's word step are made here and passed to it at
+launch (``MASKS``; the kernel holds no copy): the step keeps each byte's
+class in bit 7 (``HIGH``), and ``x & LOW7`` plus ``GE_C2`` or ``GE_F5``
+carries into bit 7 where a lead byte is at least C2 or F5. The kernel's
+geometry is named here too (``csrc/utf8.cu`` holds the same values;
+``sz_utf8_geometry`` reports them). ``launch_plan`` cuts a buffer as the
+kernel does: a head of at most 15 bytes before its first 16-byte aligned
+byte, groups of ``GROUP_BYTES`` (``UNROLL`` rows of 32 vectors) that warps
+take in turns, and the rest, which the grid's last warp takes with the
+head.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..utils import cuda_build
 
 __all__ = ["validate_count_raw", "validate_count_reference", "validate_count_device",
-           "utf8_valid", "KERNEL_LAUNCHES"]
+           "utf8_valid", "launch_plan", "grid_stride", "MASKS", "KERNEL_LAUNCHES"]
 
 # Launches of the CUDA kernel, counted where the wrapper launches it.
 KERNEL_LAUNCHES = {"utf8_validate_count": 0}
+
+# The kernel's geometry: 16-byte vectors a lane, rows of 32 vectors a warp,
+# UNROLL rows a group (a warp's turn), CTAs of THREADS, at most
+# BLOCKS_PER_SM CTAs an SM.
+VECTOR_BYTES = 16
+THREADS = 256
+WARPS = THREADS // 32
+UNROLL = 4
+BLOCKS_PER_SM = 4
+ROW_BYTES = 32 * VECTOR_BYTES
+GROUP_BYTES = UNROLL * ROW_BYTES
+CTA_BYTES = WARPS * GROUP_BYTES
+
+# The word step's masks (bit 7 of each byte a class), passed to the kernel
+# in MASKS' order (csrc/utf8.cu's struct Masks).
+HIGH = 0x80808080
+LOW7 = 0x7F7F7F7F
+GE_C2 = 0x3E3E3E3E  # low 7 bits + GE_C2 reach bit 7 iff >= 0x42: with bits 7-6 set, >= C2
+GE_F5 = 0x0B0B0B0B  # ... iff >= 0x75: with bits 7-4 set, >= F5
+ONES = 0x01010101
+LEAD_E = 0x60606060  # E0 & 0x7F; ED is E0 + E_STEP
+E_STEP = 0x0D
+LEAD_F = 0x70707070  # F0 & 0x7F; F4 is F0 ^ F_STEP
+F_STEP = 0x04040404
+BITS_54 = 0x03030303  # a continuation's bits 5-4 (shifted down 4), + BITS_54 sets bit 2 unless 00
+NOT_FIRST = 0xFFFFFF00  # the bytes of a word that reach the next word
+MASKS = (HIGH, LOW7, GE_C2, GE_F5, ONES, LEAD_E, E_STEP, LEAD_F, F_STEP, BITS_54, NOT_FIRST)
+_MASKS_ARG = (ctypes.c_uint32 * len(MASKS))(*MASKS)
+# as sz_utf8_geometry reports it
+GEOMETRY = (VECTOR_BYTES, THREADS, UNROLL, BLOCKS_PER_SM, len(MASKS))
+
+
+def launch_plan(n: int, address: int) -> dict:
+    """How the kernel cuts ``n`` bytes at ``address``: ``head`` bytes before
+    the first 16-byte aligned one (at most 15, at most n), ``groups`` whole
+    groups from there, and the span ``[tail, n + 3)`` that the grid's last
+    warp takes with the head."""
+    head = min(n, (16 - address % 16) % 16)
+    groups = (n - head) // GROUP_BYTES
+    return dict(head=head, groups=groups, tail=head + groups * GROUP_BYTES)
+
+
+def grid_stride(sms: int) -> int:
+    """Bytes between the groups one warp takes in turn, on a full grid
+    (``BLOCKS_PER_SM`` CTAs an SM, as the kernel's entry caps it)."""
+    return sms * BLOCKS_PER_SM * CTA_BYTES
 
 
 def _check(mirror, n) -> int:
@@ -92,7 +151,8 @@ def validate_count_raw(mirror: torch.Tensor, n: int) -> torch.Tensor:
     with torch.cuda.device(mirror.device):
         stream = torch.cuda.current_stream(mirror.device).cuda_stream
         sms = torch.cuda.get_device_properties(mirror.device).multi_processor_count
-        err = lib.sz_utf8_validate_count(mirror.data_ptr(), n, out.data_ptr(), sms, stream)
+        err = lib.sz_utf8_validate_count(mirror.data_ptr(), n, out.data_ptr(), _MASKS_ARG, sms,
+                                         stream)
     if err != 0:
         raise RuntimeError(f"sz_utf8_validate_count launch failed: "
                            f"{lib.sz_cuda_error_string(err).decode()} ({err})")

@@ -125,8 +125,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sz_fingerprints_merge.restype = i
     lib.sz_find_search.argtypes = [p, ll, i, i, p, p, ll, p, ll, ll, p, i, p]
     lib.sz_find_search.restype = i
-    lib.sz_utf8_validate_count.argtypes = [p, ll, p, i, p]
+    lib.sz_utf8_validate_count.argtypes = [p, ll, p, p, i, p]
     lib.sz_utf8_validate_count.restype = i
+    lib.sz_utf8_geometry.argtypes = [p]
+    lib.sz_utf8_geometry.restype = None
     u64 = ctypes.c_ulonglong
     lib.sz_hash_short.argtypes = [p, ll, p, p, ll, u64, p, i, p]
     lib.sz_hash_short.restype = i
