@@ -265,6 +265,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    first strip its last began its steps), the fill's share of the kernel
    time, and the 4 stages on plans cut to 66 and 33 SMs (wider strips).
 
+4h. Main path, the host UTF-8 layer and uncased search: the native host
+   runtime (``native/tapecraft.cpp``) must build with ``g++`` (its time
+   printed) and the UCD tables' text group (case folding, normalization)
+   must build, without ``regex`` (which groups are present is printed);
+   then ``Str.utf8_uncased_find`` on "ASCII text 256 MiB" (``uncased_text``:
+   phase 4e's log lines with ASCII paths and ``UNCASED_WORDS``, 48 words of
+   one non-ASCII run each, spread evenly) for four needles: one absent (a
+   scan through all 48 runs), one near the end, ``strasse`` (found only by
+   a patch, in ``STRAßE``) and one of 24 bytes; then on phase 4e's 256 MiB
+   log, whose runs are dense, so the device tier gives up after 64 rounds.
+   Counts are reset before each call and read after: ``byte_lut`` must
+   launch once for a ``Str`` (its folded mirror, then cached) and
+   ``find_search`` once for the needle and once a round. Each result must
+   equal the native whole-buffer scan; the device tier itself must return
+   a result (not None) on the text and None on the log; the folded mirror
+   must equal ``lookup_reference`` and the tier's searches
+   ``search_positions_reference``. Then ``utf8_fold`` and
+   ``utf8_norm("NFC")`` on the log's first 16 MiB must agree between the
+   native and the numpy tiers (the library hidden), and ``utf8_words`` and
+   ``utf8_graphemes`` between the native automata and the vectorized tier
+   where the segment tables exist; where they do not (no ``regex``), their
+   ``unicodedata`` tier on the first 1 MiB must agree with itself run line
+   by line. Last, an Arrow capsule round trip of 100,000 of the log's lines.
+   Times the first call (mirror, fold and search), the cached calls, the
+   ``byte_lut`` and ``find_search`` launches alone and the native scan,
+   each beside the card's name and power limit.
+
 Phases 4-4g also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it; a trace whose
 device time is under half the kernel's time by events is reported as
@@ -368,6 +395,19 @@ UTF8_MIX = [(0x20, 0x7E, 15), (0xC0, 0xFF, 3), (0x400, 0x4FF, 7), (0x4E00, 0x9FF
             (0x3000, 0x30FF, 8), (0xAC00, 0xD7A3, 8), (0x900, 0x97F, 4), (0x1F300, 0x1F64F, 2),
             (0x20000, 0x2A6DF, 1)]
 UTF8_MIX_PIECE = 16 << 20  # drawn once, repeated
+# Phase 4h: "ASCII text 256 MiB", the log's lines with ASCII paths and 48
+# words of one non-ASCII run each put into the paths, evenly spread; its
+# needles; the log's first HOST_BYTES for the host layer and SEGMENT_BYTES
+# for the segmenters' unicodedata tier; the Arrow round trip's lines
+ASCII_PATHS = (b"users", b"orders", b"items", b"search")
+UNCASED_WORDS = ["STRAßE", "École", "\u212Aelvin", "naïve", "GRÖßE", "ﬁle", "café", "señor",
+                 "Øresund", "ΣΊΣΥΦΟΣ", "façade", "Привет"] * 4
+UNCASED_NEEDLES = {"absent": b"Worker-99 Request", "near the end": b"OUT OF MEMORY",
+                   "strasse": b"strasse"}  # and "24 bytes" from a line at 3/4 of the text
+LOG_NEEDLE = b"fatal WORKER-9"
+HOST_BYTES = 16 << 20
+SEGMENT_BYTES = 1 << 20
+ARROW_LINES = 100_000
 # Phase 4f: bench_hash_tokens' 2^20 tokens a side, the log file's first
 # 64 MiB split on spaces, bench_crypto_e2e's documents, bench_fill_random's
 # buffer, bench_sha256's tokens and BENCH_NOTES.md's "argsort ~1M words".
@@ -2591,9 +2631,9 @@ def _write_log(path_name) -> bytes:
     return body
 
 
-def log_body() -> bytes:
+def log_body(paths=(b"users", b"orders", "cafés".encode(), "数据".encode())) -> bytes:
     """The FILE_BYTES log of phases 4e and 4f: lines of ~90 bytes, seed
-    SEED + 30, a FATAL line last."""
+    SEED + 30, a FATAL line last; each line's path one of ``paths``."""
     lines_rng = np.random.default_rng(SEED + 30)
     levels = np.array([b"INFO", b"WARN", b"DEBUG", b"ERROR"])
     lines = [b"2026-10-17T05:%02d:%02d.%03d %s worker-%d request id=%d took %d ms path=/api/v1/%s\n"
@@ -2602,7 +2642,7 @@ def log_body() -> bytes:
                  *(lines_rng.integers(0, m, 4096) for m in (60, 60, 1000)),
                  levels[lines_rng.integers(0, 4, 4096)], lines_rng.integers(0, 64, 4096),
                  lines_rng.integers(0, 10**9, 4096), lines_rng.integers(0, 5000, 4096),
-                 [b"users", b"orders", "cafés".encode(), "数据".encode()] * 1024)]
+                 list(paths) * (4096 // len(paths)))]
     body = b"".join(lines[int(i)] for i in lines_rng.integers(0, 4096, FILE_BYTES // 80))
     return (body[: body.index(b"\n", FILE_BYTES) + 1]
             + b"2026-10-17T06:00:00.000 FATAL worker-9 out of memory\n")
@@ -3621,8 +3661,326 @@ def _mim_main_path(dev, sync, report):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=err)
 
 
+# -- phase 4h: the host UTF-8 layer and uncased search --------------------------
+
+CARD = "unknown card"  # nvidia-smi's name and power limit, set by main()
+
+
+def uncased_text() -> bytes:
+    """Phase 4h's "ASCII text 256 MiB": ``log_body``'s lines with
+    ASCII_PATHS, and each of UNCASED_WORDS put into the path of the line
+    after each of len(UNCASED_WORDS) + 1 equal steps
+    (``path=/api/v1/<word>/<path>``)."""
+    body = log_body(paths=ASCII_PATHS)
+    step = len(body) // (len(UNCASED_WORDS) + 1)
+    parts, last = [], 0
+    for j, word in enumerate(UNCASED_WORDS):
+        at = body.index(b"path=/api/v1/", (j + 1) * step) + len(b"path=/api/v1/")
+        parts += [body[last:at], word.encode() + b"/"]
+        last = at
+    parts.append(body[last:])
+    return b"".join(parts)
+
+
+def _runs(arr: np.ndarray) -> list:
+    """(start, end) of each maximal run of bytes >= 0x80."""
+    hi = np.flatnonzero(arr >= 0x80)
+    if hi.size == 0:
+        return []
+    cut = np.flatnonzero(np.diff(hi) > 1)
+    starts, ends = hi[np.concatenate([[0], cut + 1])], hi[np.concatenate([cut, [-1]])] + 1
+    return [(int(a), int(b)) for a, b in zip(starts, ends)]
+
+
+def _uncased_rounds(data: bytes, runs, got) -> int:
+    """Rounds of ``ops.utf8._uncased_find_device`` to reach ``got``: a match
+    holding a non-ASCII byte is found by the patch of the first run it
+    touches; any other answer comes one round after the last run that
+    starts before its end (for no match, the buffer's end)."""
+    off, length = got
+    if off >= 0 and max(data[off: off + length]) >= 0x80:
+        return sum(end <= off for _, end in runs) + 1
+    end = off + length if off >= 0 else len(data)
+    return sum(start < end for start, _ in runs) + 1
+
+
+@contextlib.contextmanager
+def _no_native():
+    """The host UTF-8 layer with its native library hidden: its numpy and
+    Python paths."""
+    from stringzilla_tpu_torch.utils import native
+
+    lib = native.lib
+    native.lib = lambda: None
+    try:
+        yield
+    finally:
+        native.lib = lib
+
+
+def _uncased_main_path(dev, sync, report):
+    """Phase 4h: the native runtime and UCD tables, ``Str.utf8_uncased_find``
+    on the ASCII text and on the log, the host layer's tiers, Arrow."""
+    import torch
+    import stringzilla_tpu_torch as szt
+    from stringzilla_tpu_torch.ops import find_kernel as find_mod
+    from stringzilla_tpu_torch.ops import memory as memory_mod
+    from stringzilla_tpu_torch.ops import segment, ucd
+    from stringzilla_tpu_torch.ops import utf8 as U
+    from stringzilla_tpu_torch.ops import utf8_segment as US
+    from stringzilla_tpu_torch.ops.find import byteset_mask
+    from stringzilla_tpu_torch.ops.find_kernel import search_positions, search_positions_reference
+    from stringzilla_tpu_torch.ops.memory import lookup_reference, lookup_transform
+    from stringzilla_tpu_torch.ops.tape import Tape
+    from stringzilla_tpu_torch.utils import native
+
+    # -- the native runtime and the tables -----------------------------------
+    t0 = time.perf_counter()
+    native.load()  # raises with g++'s message: no Python loops unnoticed
+    print(f"[build] native/tapecraft.cpp -> {os.path.basename(native.lib()._name)} in "
+          f"{time.perf_counter() - t0:.3f} s (g++ {' '.join(native._FLAGS)})")
+    t0 = time.perf_counter()
+    _check(ucd.text_available() and len(ucd.fold1()) == 0x110000 and len(ucd.ccc()) == 0x110000,
+           "the UCD text tables did not build")
+    text_s = time.perf_counter() - t0
+    if ucd.available():
+        t0 = time.perf_counter()
+        _check(len(ucd.wb_classes()) == 0x110000, "the UCD segment tables did not build")
+        segment_group = f"built in {time.perf_counter() - t0:.3f} s (the regex package is here)"
+    else:
+        segment_group = "absent (no regex package): the segmenters take their unicodedata tier"
+    print(f"[build] UCD tables: text group (folding, normalization; the standard library) built "
+          f"in {text_s:.3f} s; segment group (wb, gcb, sb, lb, ext_pict) {segment_group}")
+    lut = U.ascii_fold_lut()
+    hi_ws = byteset_mask(bytes(range(128, 256)))
+    counters = (find_mod.KERNEL_LAUNCHES, memory_mod.KERNEL_LAUNCHES)
+    launches = {"find_search": 0, "byte_lut": 0}
+    errs = {"find_search": 0, "byte_lut": 0}
+
+    def counted(call, lut_launches, search_launches, what):
+        _reset(*counters)
+        out = call()
+        got = {"find_search": find_mod.KERNEL_LAUNCHES["find_search"],
+               "byte_lut": memory_mod.KERNEL_LAUNCHES["byte_lut"]}
+        want = {"find_search": search_launches, "byte_lut": lut_launches}
+        _check(got == want, f"{what}: launches {got} != {want}")
+        for k, v in got.items():
+            launches[k] += v
+        return out
+
+    def held(s, n, starts, what):
+        """The folded mirror against the plain LUT, and the tier's two
+        searches from each of ``starts`` against the plain search."""
+        mirror, folded = s._device(), s._device_folded()
+        _check(torch.equal(folded, lookup_reference(mirror, lut)),
+               f"byte_lut on the {what} != its plain version")
+        for lo in starts:
+            for hay, kw in ((folded, {"needle": np.frombuffer(b"out of memory", np.uint8)}),
+                            (mirror, {"byteset_words": hi_ws})):
+                got = int(search_positions(hay, n, "first", lo=lo, **kw))
+                want = int(search_positions_reference(hay, n, "first", lo=lo, **kw))
+                errs["find_search"] = max(errs["find_search"], abs(got - want))
+                _check(got == want, f"find_search on the {what} from {lo}: {got} != plain {want}")
+        print(f"[kernel] byte_lut and find_search on the {what}'s mirrors equal their plain "
+              f"versions (searches from {len(starts)} starts)")
+
+    # -- "ASCII text 256 MiB" ---------------------------------------------------
+    t0 = time.perf_counter()
+    data = uncased_text()
+    arr = np.frombuffer(data, np.uint8)
+    runs = _runs(arr)
+    _check(len(runs) == len(UNCASED_WORDS), f"ASCII text: {len(runs)} non-ASCII runs")
+    at = data.index(b" worker-", 3 * len(data) // 4) + 1
+    needles = dict(UNCASED_NEEDLES, **{"24 bytes": data[at: at + 24].upper()})
+    print(f"[setup] ASCII text: {len(data)} bytes, {len(runs)} non-ASCII runs, in "
+          f"{time.perf_counter() - t0:.3f} s")
+    want, native_ms = {}, {}
+    for name, nd in needles.items():
+        t0 = time.perf_counter()
+        want[name] = U.utf8_uncased_find(data, nd)
+        native_ms[name] = (time.perf_counter() - t0) * 1e3
+    _check(want["strasse"][0] >= 0 and data[want["strasse"][0]:][:7] == "STRAßE".encode(),
+           f"strasse: the native scan found {want['strasse']}")
+    _check(want["absent"] == (-1, 0) and want["near the end"][0] > len(data) - 100,
+           f"the native scan: {want}")
+    got, first_ms = {}, None
+    for i, (name, nd) in enumerate(needles.items()):
+        sync()
+        t0 = time.perf_counter()
+        if i == 0:
+            s = szt.Str(data)
+        rounds = _uncased_rounds(data, runs, want[name])
+        got[name] = counted(lambda: s.utf8_uncased_find(nd), 1 if i == 0 else 0, 1 + rounds,
+                            f"ASCII text, needle {name}")
+        sync()
+        if i == 0:
+            first_ms = (time.perf_counter() - t0) * 1e3
+        _check(got[name] == want[name], f"ASCII text, {name}: {got[name]} != native {want[name]}")
+        print(f"[engine] Str.utf8_uncased_find({nd!r}) on the ASCII text = {got[name]}, equal to "
+              f"the native scan; {rounds} rounds, {1 + rounds} find_search launches")
+    for name, nd in needles.items():
+        tier = U._uncased_find_device(s._buf, U._folded_with_spans(nd)[0], dev, s._device,
+                                      s._device_folded)
+        _check(tier is not None and tier == want[name],
+               f"ASCII text, {name}: the device tier returned {tier}, not {want[name]}")
+    print(f"[engine] the device tier itself returned each needle's result on the ASCII text")
+    held(s, len(data), [0, runs[10][1], runs[-1][1]], "ASCII text")
+    n = len(data)
+    mirror, folded = s._device(), s._device_folded()
+    absent = np.frombuffer(U.utf8_fold(needles["absent"]), np.uint8)
+    lut_ms = _time_ms(lambda: lookup_transform(mirror, lut), 10, sync)
+    scan_ms = _time_ms(lambda: search_positions(folded, n, "first", needle=absent), 10, sync)
+    set_ms = _time_ms(lambda: search_positions(mirror, n, "first", byteset_words=hi_ws), 10, sync)
+    lut_bound, scan_bound = _bound(0, 2.0 * mirror.numel())[0], _bound(FIND_OPS_PER_BYTE * n, n)[0]
+    print(f"[perf] uncased search, ASCII text {n} bytes [{CARD}]: first call (mirror H2D, "
+          f"byte_lut fold, {1 + _uncased_rounds(data, runs, want['absent'])} searches, "
+          f"{len(runs)} patches) {first_ms:.3f} ms")
+    for name, nd in needles.items():
+        ms = _host_ms(lambda: s.utf8_uncased_find(nd), sync, runs=2)
+        print(f"[perf] uncased search, ASCII text, {name} {nd!r} [{CARD}]: Str call, mirrors "
+              f"cached {ms:.3f} ms; the native scan of the same buffer {native_ms[name]:.3f} ms "
+              f"({native_ms[name] / ms:.2f}x)")
+    print(f"[perf] uncased search, ASCII text [{CARD}]: byte_lut over the {mirror.numel()}-byte "
+          f"mirror {lut_ms:.4f} ms [{lut_ms.lo:.4f}-{lut_ms.hi:.4f}], bound {lut_bound:.4f} ms "
+          f"(bytes), {100 * lut_bound / lut_ms:.1f}% of it; find_search, the absent needle over "
+          f"the folded mirror (a full scan) {scan_ms:.4f} ms [{scan_ms.lo:.4f}-{scan_ms.hi:.4f}], "
+          f"bound {scan_bound:.4f} ms, {100 * scan_bound / scan_ms:.1f}% of it; the byteset "
+          f">= 0x80 from 0 (to the first run at {runs[0][0]}) {set_ms:.4f} ms")
+    # is the absent needle's scan slow because its folded prefix "worker-"
+    # is in every line, so that most warps keep a candidate past the first
+    # needle byte? The same scan with a first byte that never occurs, and
+    # one cut to 16 bytes (no compare of byte 16 from memory), split it
+    absent_b = bytes(absent)
+    probes = {"the absent needle": absent_b, "its first byte made \\x01": b"\x01" + absent_b[1:],
+              "its first 16 bytes": absent_b[:16]}
+    probe_ms = {name: _time_ms(lambda: search_positions(folded, n, "first", needle=
+                                                       np.frombuffer(nd, np.uint8)), 10, sync)
+                for name, nd in probes.items()}
+    hits = {j: int(search_positions(folded, n, "count", needle=absent[:j])) for j in (1, 7, 16)}
+    print(f"[perf] find_search probe, ASCII text, {n} bytes [{CARD}]: full scans of the folded "
+          f"mirror: " + "; ".join(f"{name} {nd!r} {ms:.4f} ms [{ms.lo:.4f}-{ms.hi:.4f}]"
+                      for (name, nd), ms in zip(probes.items(), probe_ms.values()))
+          + f"; start positions where the needle's first j bytes match: "
+          + ", ".join(f"j = {j}: {c}" for j, c in hits.items()))
+    del s, mirror, folded, data, arr
+
+    # -- the 256 MiB log: dense runs, the tier gives up --------------------------
+    body = log_body()
+    runs = _runs(np.frombuffer(body, np.uint8))
+    t0 = time.perf_counter()
+    want = U.utf8_uncased_find(body, LOG_NEEDLE)
+    log_native_ms = (time.perf_counter() - t0) * 1e3
+    _check(want[0] > len(body) - 100, f"the log: the native scan found {want}")
+    sync()
+    t0 = time.perf_counter()
+    s = szt.Str(body)
+    got = counted(lambda: s.utf8_uncased_find(LOG_NEEDLE), 1, 1 + 64, "the log")
+    sync()
+    log_first_ms = (time.perf_counter() - t0) * 1e3
+    _check(got == want, f"the log: {got} != native {want}")
+    log_nd = U._folded_with_spans(LOG_NEEDLE)[0]
+    tier = U._uncased_find_device(s._buf, log_nd, dev, s._device, s._device_folded)
+    _check(tier is None, f"the log: the device tier returned {tier} over {len(runs)} runs")
+    held(s, len(body), [0, runs[63][1]], "log")
+    log_ms = _host_ms(lambda: s.utf8_uncased_find(LOG_NEEDLE), sync, runs=2)
+    print(f"[engine] Str.utf8_uncased_find({LOG_NEEDLE!r}) on the {len(body)}-byte log = {got}, "
+          f"equal to the native scan; the tier gave up after 64 of {len(runs)} runs")
+    print(f"[perf] uncased search, the log [{CARD}]: first call (mirror H2D, fold, 65 searches, "
+          f"64 patches, then the native scan) {log_first_ms:.3f} ms; mirrors cached {log_ms:.3f} ms;"
+          f" the native scan alone {log_native_ms:.3f} ms")
+    # what the 64 rounds cost: the tier alone, mirrors cached, and one round's
+    # parts (each search with its host pull) at the 32nd run
+    n, mirror, folded = len(body), s._device(), s._device_folded()
+    tier_ms = _host_ms(lambda: U._uncased_find_device(s._buf, log_nd, dev, s._device,
+                                                      s._device_folded), sync, runs=2)
+    lo, (p_hi, run_end) = runs[31][1], runs[32]
+    k = len(log_nd)
+    w0, w1 = max(lo, p_hi - 4 * k - 8), min(n, run_end + 4 * k + 8)
+    tabs = U._fold_tables()
+    nd8 = log_nd.astype(np.uint8)
+    round_ms = {
+        "needle search": _host_ms(lambda: int(search_positions(folded, n, "first", needle=nd8,
+                                                               lo=lo)), sync, runs=5),
+        "byteset search": _host_ms(lambda: int(search_positions(mirror, n, "first",
+                                                                byteset_words=hi_ws, lo=lo)),
+                                   sync, runs=5),
+        "native patch": _host_ms(lambda: native.utf8_uncased_find(
+            s._buf[w0:w1], log_nd.astype(np.uint32), 0, *tabs), sync, runs=5)}
+    print(f"[perf] uncased search, the log [{CARD}]: the tier alone, mirrors cached, 64 rounds "
+          f"then None {tier_ms:.3f} ms; one round's parts from byte {lo}: "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in round_ms.items())
+          + f" (the needle search runs once a call, the others once a round)")
+    # on the card the tier never moves to the host: no native library raises,
+    # before the new Str's mirrors are made
+    fresh = szt.Str(body)
+    with _no_native():
+        try:
+            fresh.utf8_uncased_find(LOG_NEEDLE)
+            raised = None
+        except RuntimeError as exc:
+            raised = str(exc)
+    _check(raised is not None and "native" in raised and fresh._mirror is None,
+           f"the log with the native library hidden: raised {raised!r}, "
+           f"mirror made: {fresh._mirror is not None}")
+    print(f"[engine] the uncased tier on the card with the native library hidden raises "
+          f"({raised[:60]}...) before any mirror is made")
+    del fresh, mirror, folded
+    del s
+
+    # -- the host layer on the log ------------------------------------------------
+    host = body[: body.index(b"\n", HOST_BYTES) + 1]
+    for name, fn in (("utf8_fold", U.utf8_fold), ("utf8_norm NFC", lambda b: U.utf8_norm(b, "NFC"))):
+        t0 = time.perf_counter()
+        with_native = fn(host)
+        native_s = time.perf_counter() - t0
+        with _no_native():
+            t0 = time.perf_counter()
+            without = fn(host)
+            plain_s = time.perf_counter() - t0
+        _check(with_native == without, f"{name} on {len(host)} bytes: native != numpy tier")
+        print(f"[engine] {name} on {len(host)} bytes of the log: native and numpy tiers equal "
+              f"[{CARD}]: native {native_s * 1e3:.3f} ms, numpy {plain_s * 1e3:.3f} ms")
+    if ucd.available():
+        for name, fast, plain in (("utf8_words", segment.word_breaks, segment._word_breaks_py),
+                                  ("utf8_graphemes", segment.grapheme_breaks,
+                                   segment._grapheme_breaks_py)):
+            t0 = time.perf_counter()
+            a = fast(host)
+            mid = time.perf_counter()
+            b = plain(host)
+            _check(np.array_equal(a, b), f"{name} on {len(host)} bytes: native != vectorized")
+            print(f"[engine] {name} on {len(host)} bytes: native automaton and vectorized tier "
+                  f"equal [{CARD}]: {1e3 * (mid - t0):.3f} ms, {1e3 * (time.perf_counter() - mid):.3f} ms")
+    else:
+        part = host[: host.index(b"\n", SEGMENT_BYTES) + 1]
+        lines = part.splitlines(keepends=True)
+        starts = np.concatenate([[0], np.cumsum([len(x) for x in lines])])
+        for name, fn in (("utf8_words", US.utf8_words), ("utf8_graphemes", U.utf8_graphemes)):
+            t0 = time.perf_counter()
+            whole = fn(part)
+            ms = (time.perf_counter() - t0) * 1e3
+            by_line = [(int(o) + a, b) for o, line in zip(starts, lines) for a, b in fn(line)]
+            _check(whole == by_line, f"{name} on {len(part)} bytes: whole != line by line")
+            print(f"[engine] {name} on {len(part)} bytes of the log, unicodedata tier (no segment "
+                  f"tables): {len(whole)} spans, equal line by line [{CARD}]: {ms:.3f} ms")
+
+    # -- Arrow ------------------------------------------------------------------------
+    strs = szt.Str(host).splitlines()[:ARROW_LINES]
+    t0 = time.perf_counter()
+    back = Tape.from_arrow(strs)
+    ms = (time.perf_counter() - t0) * 1e3
+    _check(back.to_list() == strs.to_list() and szt.Strs(back).to_list() == strs.to_list(),
+           "Arrow round trip")
+    print(f"[engine] Arrow: {len(strs)} lines through __arrow_c_array__ capsules and "
+          f"Tape.from_arrow, equal [{CARD}]: {ms:.3f} ms")
+    for k in ("find_search", "byte_lut"):
+        report[k]["launches"] += launches[k]
+        report[k]["max_abs_err"] = max(report[k].get("max_abs_err", 0), errs[k])
+    print(f"[engine] launches on the uncased search's main path: {launches}")
+
+
 def run(dev) -> list:
-    """Phases 3-4g on ``dev``; returns each kernel's report entry."""
+    """Phases 3-4h on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
@@ -3634,7 +3992,8 @@ def run(dev) -> list:
               ("3f", _check_hash_kernels), ("3g", _check_stage_kernel)]
     mains = [("4", _myers_main_path), ("4b", _dp_main_path), ("4c", _wavefront_main_path),
              ("4d", _fingerprint_main_path), ("4d", _utf8_main_path),
-             ("4e", _buffer_main_path), ("4f", _hash_main_path), ("4g", _mim_main_path)]
+             ("4e", _buffer_main_path), ("4f", _hash_main_path), ("4g", _mim_main_path),
+             ("4h", _uncased_main_path)]
     for (phase, fn), out in [(p, max_err) for p in phases] + [(m, report) for m in mains]:
         t0 = time.perf_counter()
         fn(dev, sync, out)
@@ -3691,7 +4050,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    card = CARD = smi.stdout.strip().splitlines()[0]
     print(card)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} capability "
@@ -3705,10 +4065,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-4g: kernels against plain versions, then the main paths ---
+    # -- phases 3-4h: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-4g in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-4h in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

@@ -21,9 +21,17 @@ over 4096 chars on the wavefront kernels, ``LevenshteinDistancesUTF8``
 costs) and ``Fingerprints`` (the MinHash kernel); the buffer tier
 (``Str``, ``File``, ``Strs`` and the module-level find, count, split,
 translate and UTF-8 functions), whose buffers of at least 1 MiB run the
-streaming-search, UTF-8 validation and byte-LUT kernels on the card; and
+streaming-search, UTF-8 validation and byte-LUT kernels on the card;
 hashing and set operations: ``Strs.hashes`` and ``intersect`` on the AES
-hash kernels of ``csrc/hash.cu``, SHA-256, sort and compare.
+hash kernels of ``csrc/hash.cu``, SHA-256, sort and compare; and the host
+UTF-8 layer: case folding, normalization, uncased search and order (a
+buffer of at least 1 MiB searched on the card through the byte-LUT and
+streaming-search kernels first), the token views and the UAX-29/14
+segmenters, over a native host runtime (``native/tapecraft.cpp``, built
+with ``g++`` on first use) and generated UCD tables; Arrow import and
+export of ``Strs`` and ``Tape``; ``reset_capabilities``. Every name of the
+JAX package's ``__all__`` is here. Only scopes over several cards are not
+(``models/device_scope.py``).
 """
 
 from .models.device_scope import DeviceScope
@@ -50,6 +58,7 @@ from .models.similarities import (
     SmithWatermanScores,
 )
 from .ops import utf8 as _u
+from .ops import utf8_segment as _useg
 from .ops.compare import batch_equal, batch_order, equal
 from .ops.compare import order as compare_order
 from .ops.hash import Hasher, bytesum, fill_random, hash_multiseed, random, sz_hash
@@ -128,12 +137,62 @@ def rfind_byteset(text, charset) -> int:
     return _as_str(text)._byteset_search(charset, "last", invert=False)
 
 
+def reset_capabilities(*caps) -> None:
+    """Restrict or restore the backend tier (binding
+    ``sz.reset_capabilities``, reference ``README.md:954-962``):
+    ``reset_capabilities('serial')`` (or ``'interpret'``) makes the default
+    scope, and every entry point given no device, run the plain versions on
+    the CPU; ``reset_capabilities()`` (or ``'all'``) and ``'cuda'``,
+    ``'gpu'``, ``'tpu'`` or ``'pallas'`` give them the card again."""
+    if "serial" in caps or "interpret" in caps:
+        platform.force_backend(cpu=True)
+    elif not caps or caps == ("all",) or any(c in caps for c in ("cuda", "gpu", "tpu", "pallas")):
+        platform.force_backend(cpu=False)
+    else:
+        raise ValueError(f"unknown capability set {caps!r}")
+
+
+def _via_str(name):
+    def fn(text, *args, **kwargs):
+        return getattr(_as_str(text), name)(*args, **kwargs)
+
+    fn.__name__ = name
+    fn.__doc__ = f"Module-level form of ``Str.{name}`` (reference binding)."
+    return fn
+
+
 hash = sz_hash  # noqa: A001 - intentional API parity with the reference
 order = compare_order  # the reference binding's name
 argsort = argsort_strings
 lookup = translate
 utf8_count = _u.utf8_count
 utf8_decode = _u.utf8_decode
+utf8_seek = _u.utf8_seek
+utf8_fold = _u.utf8_fold
+utf8_norm = _u.utf8_norm
+utf8_is_normalized = _u.utf8_is_normalized
+utf8_find_denormalized = _u.utf8_find_denormalized
+utf8_find_cased = _u.utf8_find_cased
+utf8_uncased_find = _u.utf8_uncased_find
+utf8_uncased_order = _u.utf8_uncased_order
+utf8_words = _useg.utf8_words
+utf8_codepoints = _via_str("utf8_codepoints")
+utf8_split_whitespaces = _via_str("utf8_split_whitespaces")
+utf8_split_newlines = _via_str("utf8_split_newlines")
+utf8_split_delimiters = _via_str("utf8_split_delimiters")
+utf8_uncased_fold = _via_str("utf8_uncased_fold")
+utf8_uncased_search = _via_str("utf8_uncased_search")
+utf8_uncased_matches = _via_str("utf8_uncased_matches")
+# The reference binding's module-level segmenters yield Str views
+# (python/stringzilla.c); the offset- and span-returning functions stay at
+# ops.utf8 and ops.utf8_segment.
+utf8_newlines = _via_str("utf8_newlines")
+utf8_whitespaces = _via_str("utf8_whitespaces")
+utf8_delimiters = _via_str("utf8_delimiters")
+utf8_graphemes = _via_str("utf8_graphemes")
+utf8_wordbreaks = _via_str("utf8_wordbreaks")
+utf8_sentences = _via_str("utf8_sentences")
+utf8_linebreaks = _via_str("utf8_linebreaks")
 
 __version__ = "0.1.0"
 
@@ -193,7 +252,31 @@ __all__ = [
     "splitlines",
     "sz_hash",
     "translate",
+    "reset_capabilities",
+    "utf8_codepoints",
     "utf8_count",
     "utf8_decode",
+    "utf8_delimiters",
+    "utf8_find_cased",
+    "utf8_find_denormalized",
+    "utf8_fold",
+    "utf8_graphemes",
+    "utf8_is_normalized",
+    "utf8_linebreaks",
+    "utf8_newlines",
+    "utf8_norm",
+    "utf8_seek",
+    "utf8_sentences",
+    "utf8_split_delimiters",
+    "utf8_split_newlines",
+    "utf8_split_whitespaces",
+    "utf8_uncased_find",
+    "utf8_uncased_fold",
+    "utf8_uncased_matches",
+    "utf8_uncased_order",
+    "utf8_uncased_search",
     "utf8_valid",
+    "utf8_whitespaces",
+    "utf8_wordbreaks",
+    "utf8_words",
 ]

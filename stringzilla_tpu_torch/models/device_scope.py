@@ -8,7 +8,8 @@ Counterpart of ``stringzilla_tpu/models/device_scope.py``. A scope holds one
 * ``DeviceScope()`` / ``DeviceScope(device_index=k)`` / ``gpu_device=k`` —
   ``cuda:k`` (``k = 0`` by default);
 * ``DeviceScope(device="cpu")`` — the plain PyTorch versions on the CPU,
-  reachable only by asking for it.
+  reachable only by asking for it (here, or for the default scope with
+  ``reset_capabilities('serial')``).
 
 There is no silent CPU fallback: without a card, a CUDA scope raises.
 Spreading one call over several cards comes with the port of ``parallel/``.
@@ -66,5 +67,6 @@ class DeviceScope:
 
 
 def default_device_scope() -> DeviceScope:
-    """``cuda:0``; raises when there is no card."""
-    return DeviceScope(device_index=0)
+    """``cuda:0``, which raises when there is no card; the CPU after
+    ``reset_capabilities('serial')`` (``platform.force_backend(cpu=True)``)."""
+    return DeviceScope(device=platform.default_device())

@@ -25,9 +25,13 @@ find/count/split/translate/hash functions,
 ``Strs.hashes`` of 2^14 strings or more runs the hash kernels
 (``csrc/hash.cu``) over the parent ``Str``'s mirror, gathering every span
 where it lies; ``Strs.order``/``sort``/``sorted`` sort on the host, as in
-the JAX package. Methods whose modules are not ported yet raise
-``NotImplementedError`` naming them: Arrow import and export, case folding,
-normalization, uncased search and the segmenters (the host UTF-8 modules).
+the JAX package. The UTF-8 methods (folding, normalization, uncased search,
+the token views and the segmenters) run the host UTF-8 layer (``ops.utf8``,
+``ops.utf8_segment``); ``utf8_uncased_find`` on a buffer of 1 MiB or more
+first tries its device tier over the mirror and a cached ASCII-folded copy
+of it (the byte-LUT kernel, once per ``Str``). ``Strs`` takes any Arrow
+array producer and exports itself through ``__arrow_c_array__``
+(``models/arrow.py``).
 """
 
 from __future__ import annotations
@@ -55,15 +59,6 @@ _DEVICE_MIN_BYTES = 1 << 20
 _DEVICE_MIN_HASHES = 1 << 14  # Strs.hashes takes the device from this many strings
 _MIRROR_TAIL = 16  # zero bytes past the end of a device mirror, at least
 _STAGING_BYTES = 64 << 20  # host staging chunk of a mirror's copy to a card
-
-_HOST_UTF8 = ("the host UTF-8 modules: ops/utf8.py folding, normalization and "
-              "uncased search, ops/utf8_segment.py (ROADMAP.md, queue 1 item 5)")
-_ARROW = "Arrow import and export: models/arrow.py (ROADMAP.md, queue 1 item 5)"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"not ported to stringzilla_tpu_torch yet; waits for {what}")
-
 
 def _mirror_of(buf: np.ndarray, device: torch.device) -> torch.Tensor:
     """``buf`` as a flat ``uint8`` tensor on ``device``, padded with zeros to
@@ -111,11 +106,12 @@ class Str:
     """Zero-copy byte string with device-accelerated search (reference type
     ``Str``, ``python/stringzilla.c``; C++ ``sz::string_view``)."""
 
-    __slots__ = ("_buf", "_mirror", "_bytes_cache")
+    __slots__ = ("_buf", "_mirror", "_folded", "_bytes_cache")
 
     def __init__(self, data=b""):
         self._buf = _to_bytes_like(data)
         self._mirror = None
+        self._folded = None
         self._bytes_cache = None
 
     # -- container protocol -------------------------------------------------
@@ -183,7 +179,20 @@ class Str:
         device = default_device_scope().device
         if self._mirror is None or self._mirror.device != device:
             self._mirror = _mirror_of(self._buf, device)
+            self._folded = None
         return self._mirror
+
+    def _device_folded(self) -> torch.Tensor:
+        """The mirror with ASCII case folded (A-Z → a-z) by the byte-LUT
+        kernel, built on first use and cached; dropped with the mirror when
+        the scope's device changes."""
+        mirror = self._device()
+        if self._folded is None:
+            from ..ops.memory import lookup_transform
+            from ..ops.utf8 import ascii_fold_lut
+
+            self._folded = lookup_transform(mirror, ascii_fold_lut())
+        return self._folded
 
     def _use_device(self) -> bool:
         return len(self) >= _DEVICE_MIN_BYTES
@@ -591,16 +600,33 @@ class Str:
         return utf8_valid(self)
 
     def utf8_fold(self) -> "Str":
-        _not_ported(_HOST_UTF8)
+        from ..ops.utf8 import utf8_fold
+
+        return Str(utf8_fold(bytes(self)))
 
     def utf8_norm(self, form: str = "NFC") -> "Str":
-        _not_ported(_HOST_UTF8)
+        from ..ops.utf8 import utf8_norm
+
+        return Str(utf8_norm(bytes(self), form))
 
     def utf8_uncased_find(self, needle):
-        """Case-insensitive search; its host tier and its device tier (an
-        ASCII-folded mirror through the byte LUT, then the streaming search)
-        come with the host UTF-8 modules."""
-        _not_ported(_HOST_UTF8)
+        """Case-insensitive search. Buffers of 1 MiB or more try the device
+        tier first (``ops.utf8._uncased_find_device``: the byte-LUT fold and
+        the streaming search over the mirror, native patches around
+        non-ASCII runs); the mirror and its folded copy are made once and
+        reused across calls. When the tier gives up, the native scan runs
+        over the whole buffer."""
+        from ..ops.utf8 import (_folded_with_spans, _uncased_find_device,
+                                utf8_uncased_find)
+
+        nd = _needle_bytes(needle)
+        if self._use_device():
+            nd_f, _, _ = _folded_with_spans(nd)
+            dev = _uncased_find_device(self._buf, nd_f, default_device_scope().device,
+                                       self._device, self._device_folded)
+            if dev is not None:
+                return dev
+        return utf8_uncased_find(self._buf, nd)
 
     def utf8_codepoints(self):
         """Iterator of code points, U+FFFD for ill-formed input (binding
@@ -609,44 +635,137 @@ class Str:
 
         return iter(int(r) for r in utf8_decode(bytes(self)))
 
+    def _segments_from_edges(self, inner_offsets, cls) -> "Strs":
+        """Zero-copy segment views between boundary offsets (0 and len are
+        implicit edges; never yields an empty segment for non-empty text)."""
+        n = len(self)
+        if n == 0:
+            return cls._from_views(self, [])
+        edges = [0]
+        for o in inner_offsets:
+            if 0 < o < n and o != edges[-1]:
+                edges.append(o)
+        edges.append(n)
+        return cls._from_views(self, list(zip(edges, edges[1:])))
+
     def utf8_wordbreaks(self) -> "Utf8Wordbreaks":
-        _not_ported(_HOST_UTF8)
+        """TR29 word segments as zero-copy ``Str`` views — the reference
+        binding's contract (``python/stringzilla.c:5469``: "Iterator yielding
+        Str objects for each word"); also indexable like ``Strs``. Boundary
+        *offsets* remain at ``ops.utf8_segment.utf8_wordbreaks``."""
+        from ..ops.utf8_segment import utf8_wordbreaks
+
+        return self._segments_from_edges(utf8_wordbreaks(bytes(self)),
+                                         Utf8Wordbreaks)
 
     def utf8_graphemes(self) -> "Strs":
-        _not_ported(_HOST_UTF8)
+        """UAX-29 grapheme clusters as zero-copy ``Str`` views (binding
+        ``Str.utf8_graphemes``, ``python/stringzilla.c:5592``: "Iterator
+        yielding Str objects for each grapheme cluster"; kernel reference
+        ``utf8_graphemes.h:37``). Spans remain at ``ops.utf8.utf8_graphemes``."""
+        from ..ops.utf8 import utf8_graphemes
+
+        spans = utf8_graphemes(bytes(self))
+        return Strs._from_views(self, [(o, o + l) for o, l in spans])
 
     def utf8_sentences(self) -> "Strs":
-        _not_ported(_HOST_UTF8)
+        """UAX-29 sentences as zero-copy ``Str`` views (binding
+        ``Str.utf8_sentences``, ``python/stringzilla.c:5654``: "Iterator
+        yielding Str objects for each sentence"; kernel reference
+        ``utf8_sentences.h:37``). Spans remain at
+        ``ops.utf8_segment.utf8_sentences``."""
+        from ..ops.utf8_segment import utf8_sentences
+
+        spans = utf8_sentences(bytes(self))
+        return Strs._from_views(self, [(o, o + l) for o, l in spans])
 
     def utf8_linebreaks(self) -> "Strs":
-        _not_ported(_HOST_UTF8)
+        """UAX-14 segments at line-break opportunities as zero-copy views
+        (binding ``Str.utf8_linebreaks``, ``python/stringzilla.c:5715``:
+        "Iterator yielding Str objects for each line-break-opportunity
+        segment"; kernel reference ``utf8_linebreaks.h:41``). Opportunity
+        *offsets* remain at ``ops.utf8_segment.utf8_linebreaks``."""
+        from ..ops.utf8_segment import utf8_linebreaks
+
+        return self._segments_from_edges(utf8_linebreaks(bytes(self)), Strs)
+
+    def _utf8_token_views(self, kind: str, split: bool) -> "Strs":
+        from ..ops import utf8 as U
+
+        bounds_fn = {"whitespaces": U.utf8_whitespaces,
+                     "newlines": U.utf8_newlines,
+                     "delimiters": U.utf8_delimiters}[kind]
+        cls = _UTF8_VIEW_TYPES[kind, split]
+        marks = bounds_fn(bytes(self))  # [(off, len), ...] token marks
+        if not split:
+            return cls._from_views(self, [(o, o + l) for o, l in marks])
+        bounds, pos = [], 0
+        for o, l in marks:
+            bounds.append((pos, o))
+            pos = o + l
+        bounds.append((pos, len(self)))
+        return cls._from_views(self, bounds)
 
     def utf8_whitespaces(self) -> "Utf8Whitespaces":
-        _not_ported(_HOST_UTF8)
+        """Unicode whitespace runs as zero-copy views (binding
+        ``Str.utf8_whitespaces``, reference type ``stringzilla.Utf8Whitespaces``)."""
+        return self._utf8_token_views("whitespaces", split=False)
 
     def utf8_newlines(self) -> "Utf8Newlines":
-        _not_ported(_HOST_UTF8)
+        """Mandatory-break newline tokens as zero-copy views (binding
+        ``Str.utf8_newlines``, reference type ``stringzilla.Utf8Newlines``)."""
+        return self._utf8_token_views("newlines", split=False)
 
     def utf8_delimiters(self) -> "Utf8Delimiters":
-        _not_ported(_HOST_UTF8)
+        """Delimiter tokens as zero-copy views (binding
+        ``Str.utf8_delimiters``, reference type ``stringzilla.Utf8Delimiters``)."""
+        return self._utf8_token_views("delimiters", split=False)
 
     def utf8_split_whitespaces(self) -> "Utf8SplitWhitespaces":
-        _not_ported(_HOST_UTF8)
+        """Split between Unicode whitespace runs (binding
+        ``utf8_split_whitespaces``)."""
+        return self._utf8_token_views("whitespaces", split=True)
 
     def utf8_split_newlines(self) -> "Utf8SplitNewlines":
-        _not_ported(_HOST_UTF8)
+        return self._utf8_token_views("newlines", split=True)
 
     def utf8_split_delimiters(self) -> "Utf8SplitDelimiters":
-        _not_ported(_HOST_UTF8)
+        return self._utf8_token_views("delimiters", split=True)
 
     def utf8_uncased_fold(self) -> "Str":
-        _not_ported(_HOST_UTF8)
+        """Binding name for ``utf8_fold``."""
+        return self.utf8_fold()
 
     def utf8_uncased_search(self, needle, start_rune: int = 0):
-        _not_ported(_HOST_UTF8)
+        """Binding name for ``utf8_uncased_find``."""
+        from ..ops.utf8 import utf8_uncased_find
+
+        if start_rune:
+            return utf8_uncased_find(bytes(self), _needle_bytes(needle),
+                                     start_rune)
+        return self.utf8_uncased_find(needle)
 
     def utf8_uncased_matches(self, needle, include_overlapping: bool = False):
-        _not_ported(_HOST_UTF8)
+        """Iterate all uncased matches as (byte_offset, byte_len) — matched
+        spans may differ in length from the needle (folding expansions,
+        binding ``utf8_uncased_matches``)."""
+        from ..ops.utf8 import utf8_uncased_find
+
+        buf = bytes(self)
+        nd = _needle_bytes(needle)
+        pos = 0
+        while pos <= len(buf):
+            off, ln = utf8_uncased_find(buf[pos:], nd)
+            if off < 0:
+                return
+            yield (pos + off, ln)
+            step = 1 if include_overlapping else max(ln, 1)
+            # advance past the match start (overlapping) or the whole match
+            nxt = pos + off + step
+            # don't restart mid-rune
+            while nxt < len(buf) and (buf[nxt] & 0xC0) == 0x80:
+                nxt += 1
+            pos = nxt
 
     # -- order ----------------------------------------------------------------
 
@@ -673,9 +792,13 @@ class Strs:
         if isinstance(items, Tape):
             tape = items
         elif hasattr(items, "__arrow_c_array__"):
-            # Any Arrow producer; the reference constructor consumes its
-            # capsules (``python/stringzilla.c:8537``).
-            _not_ported(_ARROW)
+            # Any Arrow producer (pyarrow/polars/duckdb array) — the
+            # reference constructor consumes the same capsules
+            # (``python/stringzilla.c:8537``).
+            from .arrow import tape_arrays_from_arrow
+
+            data, offsets = tape_arrays_from_arrow(items)
+            tape = Tape(data=data, offsets=offsets)
         else:
             tape = Tape.from_strings(list(items))
         self._parent = Str(np.asarray(tape.data))
@@ -683,8 +806,25 @@ class Strs:
         self._ends = np.asarray(tape.offsets[1:], dtype=np.int64)
 
     def __arrow_c_array__(self, requested_schema=None):
-        """Arrow PyCapsule export (binding ``Strs.__arrow_c_array__``)."""
-        _not_ported(_ARROW)
+        """Arrow PyCapsule export (binding ``Strs.__arrow_c_array__``) as a
+        ``large_binary`` array. Zero-copy when the views tile their parent
+        contiguously (the common tape-backed case); re-taped otherwise."""
+        from .arrow import export_tape_capsules
+
+        n = len(self)
+        contiguous = n > 0 and (self._ends[:-1] == self._starts[1:]).all() \
+            and int(self._starts[0]) == 0
+        if n == 0:
+            offsets = np.zeros(1, dtype=np.int64)
+            data = np.zeros(0, dtype=np.uint8)
+        elif contiguous:
+            offsets = np.concatenate(
+                [self._starts, self._ends[-1:]]).astype(np.int64)
+            data = self._parent._buf
+        else:
+            tape = self.to_tape()
+            offsets, data = tape.offsets, tape.data
+        return export_tape_capsules(offsets, np.asarray(data))
 
     @classmethod
     def _from_views(cls, parent: Str, bounds) -> "Strs":
@@ -893,6 +1033,16 @@ class Utf8SplitDelimiters(Strs):
     """Segments between delimiters (ref ``stringzilla.Utf8SplitDelimiters``)."""
 
 
+_UTF8_VIEW_TYPES = {
+    ("newlines", False): Utf8Newlines,
+    ("whitespaces", False): Utf8Whitespaces,
+    ("delimiters", False): Utf8Delimiters,
+    ("newlines", True): Utf8SplitNewlines,
+    ("whitespaces", True): Utf8SplitWhitespaces,
+    ("delimiters", True): Utf8SplitDelimiters,
+}
+
+
 class File(Str):
     """Memory-mapped read-only file (reference type ``File``,
     ``python/stringzilla.c``): zero-copy `Str` over the page cache."""
@@ -919,6 +1069,7 @@ class File(Str):
             # exported buffer pointers exist.
             self._buf = np.zeros(0, dtype=np.uint8)
             self._mirror = None
+            self._folded = None
             self._bytes_cache = None
             self._mmap.close()
             self._file.close()

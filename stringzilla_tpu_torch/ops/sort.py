@@ -21,9 +21,11 @@ a key matrix and the rows are sorted once, lexicographically:
 
 ``reverse=True`` inverts the key bytes (``0xFF - b``), giving descending
 order with ties kept stable (``sort.h:24-26``); ``top_count`` returns the
-first K indices; ``uncased`` folds ASCII case. Uncased sorting of a buffer
-with non-ASCII bytes needs the full Unicode fold tables, which come with the
-host UTF-8 modules: until then it raises ``NotImplementedError``.
+first K indices; ``uncased`` folds ASCII case, and applies full Unicode case
+folding when the buffer holds a byte >= 0x80 (``sz_sequence_argsort_uncased``,
+reference ``sort.h:18-22,114``): keys exported by the native host runtime's
+``tc_pgram_keys_unicode`` from the folded strings, or, without that
+runtime, packed from ``ops.utf8.utf8_fold`` of each string.
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ __all__ = ["argsort_strings", "argsort_tape", "argsort_bounds", "pack_pgram_keys
 
 _DEVICE_MIN_ITEMS = 1 << 14  # below this, the host lexsort wins on latency
 _ROWS_PER_PASS = 1 << 20  # rows exported at once, to bound the dense block
-_UNCASED_UNICODE = ("uncased sorting of non-ASCII bytes needs the Unicode fold tables of "
-                    "ops/utf8.py, not ported to stringzilla_tpu_torch yet (ROADMAP.md, "
-                    "queue 1 item 5)")
 
 
 def pgram_keys_bounds(data: np.ndarray, starts, ends, words: int, uncased: bool = False,
@@ -127,6 +126,21 @@ def _argsort_keys(keys: np.ndarray, top_count: int | None, prefer_device: bool =
     return order[:top_count] if top_count is not None else order
 
 
+def _unicode_uncased_keys(data, starts, ends, maxlen: int, reverse: bool) -> np.ndarray:
+    """Key matrix of the fully case-folded spans, as the JAX module makes it."""
+    from ..utils import native
+    from .utf8 import _fold_tables, utf8_fold
+
+    words = max(-(-(3 * maxlen) // 4), 2)  # folded bytes can expand up to 3x the raw length
+    tabs = _fold_tables()
+    keys = (native.pgram_keys_unicode(data, starts, ends, words, reverse, *tabs)
+            if tabs is not None else None)
+    if keys is None:
+        items = [utf8_fold(bytes(data[int(s):int(e)])) for s, e in zip(starts, ends)]
+        keys = pack_pgram_keys(items, reverse=reverse, uncased=False)
+    return keys
+
+
 def argsort_bounds(data: np.ndarray, starts: np.ndarray, ends: np.ndarray,
                    reverse: bool = False, top_count: int | None = None,
                    uncased: bool = False, prefer_device: bool = False,
@@ -136,9 +150,10 @@ def argsort_bounds(data: np.ndarray, starts: np.ndarray, ends: np.ndarray,
     if len(starts) == 0:
         return np.zeros(0, dtype=np.int64)
     data = np.asarray(data)
-    if uncased and bool((data >= 0x80).any()):
-        raise NotImplementedError(_UNCASED_UNICODE)
     maxlen = int((np.asarray(ends) - np.asarray(starts)).max())
+    if uncased and bool((data >= 0x80).any()):
+        keys = _unicode_uncased_keys(data, starts, ends, maxlen, reverse)
+        return _argsort_keys(keys, top_count, prefer_device=prefer_device, device=device)
     keys = pgram_keys_bounds(data, starts, ends, max(-(-maxlen // 4), 2),
                              uncased=uncased, reverse=reverse)
     return _argsort_keys(keys, top_count, prefer_device=prefer_device, device=device)

@@ -5,13 +5,22 @@ The reference library picks an ISA tier at load time (reference
 tensor lives on: CUDA tensors run the hand-written Hopper kernels in
 ``csrc/``, CPU tensors run each kernel's plain PyTorch version. Nothing is
 decided at import time, and no device is picked silently.
+
+``force_backend`` is the knob behind ``reset_capabilities`` (the
+reference's ``sz.reset_capabilities``): ``force_backend(cpu=True)`` makes
+the entry points that are given no device (the default scope among them)
+run the plain versions on the CPU, an explicit request like
+``DeviceScope(device="cpu")``; ``force_backend(cpu=False)`` gives them the
+card again.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["cuda_device", "resolve_device", "capabilities"]
+__all__ = ["cuda_device", "default_device", "resolve_device", "force_backend", "capabilities"]
+
+_CPU_FORCED = False  # set by force_backend
 
 
 def cuda_device(index: int = 0) -> torch.device:
@@ -29,10 +38,22 @@ def cuda_device(index: int = 0) -> torch.device:
     return torch.device("cuda", index)
 
 
+def force_backend(cpu: bool) -> None:
+    """Whether entry points given no device run the plain versions on the
+    CPU (``cpu=True``) or on the card (``cpu=False``, the default)."""
+    global _CPU_FORCED
+    _CPU_FORCED = bool(cpu)
+
+
+def default_device() -> torch.device:
+    """The CPU after ``force_backend(cpu=True)``, else ``cuda_device()``,
+    which raises when there is no card."""
+    return torch.device("cpu") if _CPU_FORCED else cuda_device()
+
+
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; None is ``cuda_device()``, which
-    raises when there is no card."""
-    return torch.device(device) if device is not None else cuda_device()
+    """``device`` as a ``torch.device``; None is ``default_device()``."""
+    return torch.device(device) if device is not None else default_device()
 
 
 def capabilities() -> tuple[str, ...]:
