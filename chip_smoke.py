@@ -146,12 +146,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3e. The same for the buffer tier's kernels: ``ops.find_kernel.
    search_positions`` against ``search_positions_reference`` in every mode
    (first, last, count) for needles of 1-16, 17, 130 and 5,000 bytes
-   planted at every chunk edge +- k, across the edges and at 0 and n - k,
-   with ``[lo, hi]`` windows at a chunk edge, ``lo > hi`` and ``lo < 0``,
-   on haystacks that are not 16-byte aligned, all hits, empty and shorter
-   than the needle, bytesets holding 0x00 and 0xFF and their inversions,
-   and a 64 MiB haystack whose hits in six chunks race for the early exit
-   (three runs); ``ops.utf8_device.validate_count_raw`` against
+   planted at every tile edge +- k, across the edges and at 0 and n - k,
+   and one byte either side of every other edge in a haystack whose lines
+   all start with the needle's first 7 bytes (a dense prefix), with
+   ``[lo, hi]`` windows at a tile edge, ``lo > hi`` and ``lo < 0``, on
+   haystacks that are not 16-byte aligned, all hits, empty and shorter
+   than the needle, hits in the last 15 bytes (copied with plain loads),
+   needles whose filter plan starts past 16 bytes and past the halo's
+   reach, bytesets holding 0x00 and 0xFF and their inversions, a 32 MiB
+   haystack with hits one byte either side of every tile edge (the ring of
+   every CTA wraps), aligned and not, for a plan with lead 0 and one with
+   lead 1, and a 64 MiB haystack whose hits in six tiles race for the
+   early exit (three runs); the kernel's geometry (``sz_find_geometry``)
+   must be the module's; ``ops.utf8_device.validate_count_raw`` against
    ``validate_count_reference`` (both numbers) on
    ``tests/test_intersect_utf8.py``'s case list, 300 fuzzed buffers, 12
    MiB of text with violations at the kernel's CTA, group and grid-stride
@@ -290,7 +297,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    by line. Last, an Arrow capsule round trip of 100,000 of the log's lines.
    Times the first call (mirror, fold and search), the cached calls, the
    ``byte_lut`` and ``find_search`` launches alone and the native scan,
-   each beside the card's name and power limit.
+   each beside the card's name and power limit; probes ``find_search`` on
+   the folded text's dense prefix (the absent needle, its first byte made
+   ``\\x01``, its first 16 bytes: each scan's time, filter plan and the
+   positions that match at the plan's offsets); and splits one round's
+   byteset search on the log into the wrapper's host steps, the launch's
+   device time and the pull.
 
 Phases 4-4g also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it; a trace whose
@@ -369,13 +381,14 @@ FP_DOCS = (2048, 2048, 16385)  # web-page dedup: count, lengths in [lo, hi)
 FP_BIG = 3  # phase 3d's 64 KB docs
 UTF8_MIXED = (64, 8192)  # bench_levenshtein_utf8's shape
 UTF8_CJK = (64, 2048)  # 100-400 runes from 3,000 CJK code points
-# Phase 3e: the search kernel's haystack (four of its chunks and a ragged
-# end), the needle lengths, a bigger haystack whose hits in many chunks race
-# for the early exit, and the UTF-8 pass's buffer with violations at its
-# CTA and grid-stride edges
+# Phase 3e: the search kernel's haystack (16 of its tiles and a ragged
+# end), the needle lengths, a bigger haystack whose hits in many tiles race
+# for the early exit, one with hits at every tile edge, and the UTF-8
+# pass's buffer with violations at its CTA and grid-stride edges
 FIND_CHECK = 4 * 65536 + 777
 FIND_KS = tuple(range(1, 17)) + (17, 130, 5000)
 FIND_RACE = 64 << 20
+FIND_EDGES = 32 << 20  # 2,048 tiles: ~8 a CTA on 132 SMs, so the ring wraps
 UTF8_CHECK = 12 << 20  # over the UTF-8 kernel's grid stride (8.65 MB on 132 SMs)
 # Phase 4e: benches/bench_all.py's bench_find and bench_lookup buffers,
 # bench_utf8_count_device's blob, a mixed-script buffer of the same size,
@@ -466,14 +479,32 @@ MYERS_OPS_PER_WORD_STEP = 34
 # compare-and-corrects and the minimum's compare and select.
 F64_OPS_PER_S = 67e12 / 4
 FINGERPRINT_OPS_PER_STEP = 5
-# int32 ops a haystack byte: the search's SWAR first-byte filter, 9 a
-# 4-byte word. The UTF-8 pass has no operations term: every design must
+# SASS instructions a haystack byte of the search's filter, by the number
+# of its plan's offsets (0: a byteset's table lookup): its instructions a
+# 4-byte word over 4, counted by tools/find_ab.py --sass (each filter of
+# csrc/find.cu alone on a thread's words of a tile in shared memory, the
+# loop's counter and branch included; the sm_90a build). A diagnostic,
+# printed beside the bound: the count is this design's choice (loads and
+# branches among it), not work that every search must do, so the search is
+# bounded by the bytes it must read once, as the UTF-8 pass is.
+# The UTF-8 pass has no operations term either: every design must
 # read each byte once, but no count of operations is one that every design
 # must do (an all-ASCII 16-byte vector is settled by an OR of its words and
 # a test; the bit-7 classes of csrc/utf8.cu take some 25-40 instructions a
 # multi-byte word, tools/utf8_ab.py --probe, and a design with fewer is not
-# ruled out). Its bound is the bytes read once.
-FIND_OPS_PER_BYTE = 2.25
+# ruled out).
+FIND_SASS_PER_BYTE = {0: 12.69 / 4, 1: 4.69 / 4, 2: 12.12 / 4, 3: 20.25 / 4}
+
+
+def _find_bounds(nbytes, needle=None) -> tuple:
+    """(bound_ms, bound_by, sass_ms, sass_per_byte) of a search that must
+    read ``nbytes``: the bound is those bytes read once; ``sass_ms`` is the
+    int32 issue time of ``needle``'s filter (a byteset's with None) at
+    FIND_SASS_PER_BYTE, a diagnostic."""
+    from stringzilla_tpu_torch.ops.find_kernel import filter_offsets
+
+    per_byte = FIND_SASS_PER_BYTE[0 if needle is None else len(filter_offsets(needle))]
+    return (*_bound(0, nbytes), _bound(per_byte * nbytes, 0)[0], per_byte)
 # int32 ops of the AES kernels as written: one AESENC is 16 table loads,
 # 16 byte extracts and 16 xors; a sum-lane update 16 byte moves and two
 # 64-bit adds (4 int32 ops); a block absorbed is one of each.
@@ -677,6 +708,31 @@ def _time_cold_ms(fn, iters, sync, dev, batches=5):
     for _ in range(batches):
         for start, end in zip(starts, ends):
             flush.sum()
+            start.record()
+            fn()
+            end.record()
+        sync()
+        times.append(sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters)
+    t = Timing(np.median(times))
+    t.lo, t.hi = min(times), max(times)
+    return t
+
+
+def _time_queued_ms(fn, iters, sync, batches=5):
+    """``_time_ms`` for runs shorter than their own host work: each run is
+    queued behind a ~0.2 ms spin of the card (``torch.cuda._sleep``) with
+    its CUDA events around it alone, so the events time the run on the
+    card, not the host's pace of enqueueing it."""
+    import torch
+
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    fn()
+    sync()
+    times = []
+    for _ in range(batches):
+        for start, end in zip(starts, ends):
+            torch.cuda._sleep(400_000)
             start.record()
             fn()
             end.record()
@@ -2462,44 +2518,71 @@ UTF8_POOL = (b"xyz", "é".encode(), "€".encode(), "\U0001f389".encode(),
              b"\xC3", b"\x80", b"\xED\xA0\x80", b"\xF4\x90\x80\x80")
 
 
+def _dense_prefix(buf, n, needle, rng):
+    """Writes the needle's first min(7, k - 1) bytes into ``buf[:n]`` about
+    every 90 bytes, each followed by a byte the needle does not have there:
+    a prefix in every line, as in phase 4h's folded text."""
+    k = len(needle)
+    j = min(7, k - 1)
+    if j:
+        starts = np.arange(0, n - k - 8, 90)
+        starts = starts + rng.integers(0, 40, len(starts))
+        for i in range(j):
+            buf[starts + i] = needle[i]
+        buf[starts + j] = needle[j] ^ 0x40
+
+
 def _check_find_kernel(dev, sync, max_err):
     """Phase 3e: the streaming search against its plain version."""
-    import torch
-    from stringzilla_tpu_torch.ops.find import byteset_mask
-    from stringzilla_tpu_torch.ops.find_kernel import (CHUNK_POSITIONS, search_positions,
-                                                       search_positions_reference)
+    import ctypes
 
+    import torch
+    from stringzilla_tpu_torch.ops import find_kernel as F
+    from stringzilla_tpu_torch.ops.find import byteset_mask
+    from stringzilla_tpu_torch.ops.find_kernel import (TILE_POSITIONS, filter_offsets,
+                                                       search_positions,
+                                                       search_positions_reference)
+    from stringzilla_tpu_torch.utils import cuda_build
+
+    geometry = (ctypes.c_int * len(F.GEOMETRY))()
+    cuda_build.load().sz_find_geometry(geometry)
+    _check(tuple(geometry) == F.GEOMETRY, f"sz_find_geometry {tuple(geometry)} != {F.GEOMETRY}")
     rng = np.random.default_rng(SEED + 20)
     err, calls = 0, 0
 
     def same(hay, n, what, modes=("first", "last", "count"), **kw):
         nonlocal err, calls
+        got = {}
         for mode in modes:
-            got = int(search_positions(hay, n, mode, **kw))
+            got[mode] = int(search_positions(hay, n, mode, **kw))
             want = int(search_positions_reference(hay, n, mode, **kw))
-            err = max(err, abs(got - want))
+            err = max(err, abs(got[mode] - want))
             calls += 1
-            _check(got == want, f"find_search {mode} {what}: {got} != plain {want}")
+            _check(got[mode] == want, f"find_search {mode} {what}: {got[mode]} != plain {want}")
+        return got
 
     def on_card(buf):
         return torch.from_numpy(np.ascontiguousarray(buf)).to(dev)
 
     n = FIND_CHECK
-    edges = list(range(CHUNK_POSITIONS, n, CHUNK_POSITIONS))
+    edges = list(range(TILE_POSITIONS, n, TILE_POSITIONS))
     b1 = edges[0]
     for k in FIND_KS:
         needle = rng.integers(97, 123, k, dtype=np.uint8)
         spots = {"edges+-k": [0, n - k] + [p for b in edges for p in (b - k, b + k)],
-                 "across edges": [b - max(k // 2, 1) for b in edges]}
+                 "across edges": [b - max(k // 2, 1) for b in edges],
+                 "dense prefix, edges +-1": [p for b in edges[::2] for p in (b - 1, b + 1)]}
         for name, at in spots.items():
             buf = rng.integers(97, 123, n + 16, dtype=np.uint8)
             buf[n:] = 0
+            if name.startswith("dense"):
+                _dense_prefix(buf, n, needle, rng)
             for p in at:
                 if 0 <= p <= n - k:
                     buf[p: p + k] = needle
             hay = on_card(buf)
             for lo, hi in [(0, None), (1, None), (b1, b1), (b1 - k, b1 + k), (b1 + 1, b1 - 1),
-                           (CHUNK_POSITIONS - 1, n - k - 1), (-5, 3)]:
+                           (TILE_POSITIONS - 1, n - k - 1), (-5, 3)]:
                 same(hay, n, f"k={k} {name} [{lo}, {hi}]", needle=needle, lo=lo, hi=hi)
             if k in (1, 5, 17):  # a haystack that is not 16-byte aligned
                 same(on_card(np.concatenate([np.zeros(3, np.uint8), buf]))[3:], n,
@@ -2512,6 +2595,28 @@ def _check_find_kernel(dev, sync, max_err):
     empty = torch.zeros(16, dtype=torch.uint8, device=dev)
     same(empty, 0, "empty buffer", needle=np.frombuffer(b"a", np.uint8))
     same(empty, 3, "n < k", needle=np.zeros(5, np.uint8))
+    # hits in the last 15 bytes, which the ring copies with plain loads, and
+    # a last tile shorter than a tile
+    for k in (1, 3, 9, 15):
+        buf = rng.integers(97, 123, n + 16, dtype=np.uint8)
+        buf[n - k: n] = np.frombuffer(b"#" * k, np.uint8)
+        same(on_card(buf), n, f"k={k} in the tail", needle=np.full(k, 35, np.uint8))
+    # needles whose plan takes offsets past 16 bytes (a lead of 40) and past
+    # the halo's reach (300 bytes, rare bytes at 100 and 120: verified from
+    # global memory past the stage and from the uploaded needle past 256)
+    for k, marks in ((60, {40: b"#", 50: b"!"}), (300, {100: b"#", 120: b"!"})):
+        needle = rng.integers(97, 123, k, dtype=np.uint8)
+        for at, b in marks.items():
+            needle[at] = b[0]
+        plan = filter_offsets(needle)
+        _check(plan[0] >= 40, f"k={k}: plan {plan} does not start past 16 bytes")
+        buf = rng.integers(97, 123, n + 16, dtype=np.uint8)
+        for p in [0, 7, n - k] + [b - at for b in edges for at in (1, 45, 130)]:
+            if 0 <= p <= n - k:
+                buf[p: p + k] = needle
+        same(on_card(buf), n, f"k={k} plan {plan}", needle=needle)
+        for lo, hi in [(5, n - 9), (b1 - 41, b1 + 200)]:
+            same(on_card(buf), n, f"k={k} plan {plan} [{lo}, {hi}]", needle=needle, lo=lo, hi=hi)
 
     buf = rng.integers(97, 123, n + 16, dtype=np.uint8)
     buf[n:] = 0
@@ -2525,19 +2630,40 @@ def _check_find_kernel(dev, sync, max_err):
             for lo, hi in [(0, None), (b1 - 2, b1 + 1), (5, n - 2)]:
                 same(hay, n, f"{name} {charset!r} [{lo}, {hi}]", byteset_words=w, lo=lo, hi=hi)
 
+    # many tiles a CTA, so that every stage of the ring wraps: hits one
+    # byte either side of every tile edge, of the plain needle (lead 0) and
+    # of one whose plan skips its first byte (lead 1: edges one position
+    # earlier); aligned and not
+    big = rng.integers(97, 123, FIND_EDGES + 16, dtype=np.uint8)
+    for needle in (np.frombuffer(b"#!", np.uint8), np.frombuffer(b"e#!?", np.uint8)):
+        lead = filter_offsets(needle)[0]
+        buf = big.copy()
+        planted = [t * TILE_POSITIONS - lead + (1 if t % 2 else -1)
+                   for t in range(1, FIND_EDGES // TILE_POSITIONS)]
+        for p in planted:
+            buf[p: p + len(needle)] = needle
+        for view, name in ((on_card(buf), "aligned"),
+                           (on_card(np.concatenate([np.zeros(5, np.uint8), buf]))[5:], "unaligned")):
+            got = same(view, FIND_EDGES, f"{bytes(needle)!r} (lead {lead}) at "
+                       f"{len(planted)} tile edges +-1, {name}", needle=needle)
+            _check(got == {"first": planted[0], "last": planted[-1], "count": len(planted)},
+                   f"find_search tile edges {name}: {got}")
+    del big, buf
+
     race = rng.integers(97, 123, FIND_RACE, dtype=np.uint8)
     needle = np.frombuffer(b"race!hit", np.uint8)
-    chunks = FIND_RACE // CHUNK_POSITIONS
-    for c in (3, 4, chunks // 3, chunks // 3 + 1, 2 * chunks // 3, chunks - 2):
-        p = c * CHUNK_POSITIONS - 4 + int(rng.integers(0, 9))
+    tiles = FIND_RACE // TILE_POSITIONS
+    for c in (3, 4, tiles // 3, tiles // 3 + 1, 2 * tiles // 3, tiles - 2):
+        p = c * TILE_POSITIONS - 4 + int(rng.integers(0, 9))
         race[p: p + len(needle)] = needle
     hay = on_card(race)
-    for _ in range(3):  # blocks claim chunks in a different order each time
-        same(hay, FIND_RACE, "hits in six chunks", needle=needle)
+    for _ in range(3):  # blocks claim tiles in a different order each time
+        same(hay, FIND_RACE, "hits in six tiles", needle=needle)
     max_err["find_search"] = err
-    print(f"[kernel] find_search: needles of {len(FIND_KS)} lengths up to {max(FIND_KS)} "
-          f"bytes, bytesets, bounds, all-hit, empty, unaligned and racing haystacks: "
-          f"{calls} results exact")
+    print(f"[kernel] find_search: geometry {tuple(geometry)}; needles of {len(FIND_KS)} lengths "
+          f"up to {max(FIND_KS)} bytes (plain, dense prefix), plans past 16 bytes and past the "
+          f"halo, bytesets, bounds, all-hit, tail, empty, unaligned, tile edges and ring wraps "
+          f"on {FIND_EDGES >> 20} MiB, racing haystacks: {calls} results exact")
 
 
 def _check_utf8_kernel(dev, sync, max_err):
@@ -2767,11 +2893,15 @@ def _buffer_main_path(dev, sync, report):
     kernel_ms = _time_ms(lambda: search_positions(mirror, n, "first", needle=nd), 10, sync)
     plain_ms = _time_ms(lambda: search_positions_reference(mirror, n, "first", needle=nd), 1, sync)
     scanned = hit + len(needle)  # "first" reads up to its hit: here the whole buffer
-    bound_ms, bound_by = _bound(FIND_OPS_PER_BYTE * scanned, scanned)
+    bound_ms, bound_by, sass_ms, sass_per_byte = _find_bounds(scanned, needle)
     _profile(f"Str.find {n >> 20} MiB", lambda: s.find(needle), sync, kernel_ms)
     print(f"[perf] find {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
-          f"kernel {kernel_ms:.4f} ms = {n / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; "
-          f"bound {bound_ms:.4f} ms ({bound_by}, the hit at N - 4096 makes it a full scan)")
+          f"kernel {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
+          f"{n / kernel_ms / 1e6:.3f} GB/s; plain {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, the hit at N - 4096 makes it a full scan), "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it; the "
+          f"{len(find_mod.filter_offsets(needle))}-offset filter's {sass_per_byte:.4f} SASS "
+          f"instructions a byte would issue in {sass_ms:.4f} ms at the int32 rate")
     for name, (fn, _) in calls.items():
         ms = _host_ms(lambda: fn(s), sync)
         print(f"[perf] Str.{name} {n >> 20} MiB, mirror cached: {ms:.3f} ms = {n / ms / 1e6:.3f} GB/s")
@@ -2779,8 +2909,10 @@ def _buffer_main_path(dev, sync, report):
     for name, (charset, mode) in words.items():
         ws = byteset_mask(charset)
         ms = _time_ms(lambda: search_positions(mirror, n, mode, byteset_words=ws), 10, sync)
-        print(f"[perf] find_search byteset {name} {n >> 20} MiB: kernel {ms:.4f} ms = "
-              f"{n / ms / 1e6:.3f} GB/s")
+        b_ms, b_by = _find_bounds(n)[:2]
+        print(f"[perf] find_search byteset {name} {n >> 20} MiB: kernel {ms:.4f} ms "
+              f"[{ms.lo:.4f}-{ms.hi:.4f}] = {n / ms / 1e6:.3f} GB/s; bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f}% of it")
     # bytes the search must read: up to the hit and its needle ("first"),
     # from the hit on ("last"), all of them (count). The 130-byte needle's
     # first 16 bytes hit at the same place, with no needle to upload.
@@ -2790,9 +2922,12 @@ def _buffer_main_path(dev, sync, report):
             ("130 last", ("last", long), n - got["rfind 130"]),
             ("count ab", ("count", np.frombuffer(b"ab", np.uint8)), n)):
         ms = _time_ms(lambda: search_positions(mirror, n, args[0], needle=args[1]), 10, sync)
-        print(f"[perf] find_search {name} {n >> 20} MiB: kernel {ms:.4f} ms = {n / ms / 1e6:.3f} GB/s "
-              f"of the buffer; it must read {scanned} bytes: {scanned / ms / 1e6:.3f} GB/s of those "
-              f"(the full scan above: {n / kernel_ms / 1e6:.3f} GB/s)")
+        b_ms, b_by = _find_bounds(scanned, bytes(args[1]))[:2]
+        print(f"[perf] find_search {name} {n >> 20} MiB: kernel {ms:.4f} ms "
+              f"[{ms.lo:.4f}-{ms.hi:.4f}] = {n / ms / 1e6:.3f} GB/s of the buffer; it must read "
+              f"{scanned} bytes: {scanned / ms / 1e6:.3f} GB/s of those (the full scan above: "
+              f"{n / kernel_ms / 1e6:.3f} GB/s); bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f}% of it")
     ab = np.frombuffer(b"ab", np.uint8)
     err = held(search_positions, f"the {n >> 20} MiB mirror", {
         f"{mode} {label}": (mirror, n, mode, *kw) for label, kw in (
@@ -2852,7 +2987,7 @@ def _buffer_main_path(dev, sync, report):
     kernel_ms = _time_ms(utf8_launch(mirror, n), 10, sync)
     plain_ms = _time_ms(lambda: validate_count_reference(mirror, n), 1, sync)
     call_ms = _host_ms(lambda: s.utf8_count(), sync)
-    bound_ms, bound_by = _bound(0, n)  # the bytes read once (see FIND_OPS_PER_BYTE)
+    bound_ms, bound_by = _bound(0, n)  # the bytes read once (see FIND_SASS_PER_BYTE)
     print(f"[perf] utf8_count {n >> 20} MiB: first call with the mirror's H2D {first_ms:.3f} ms; "
           f"Str call, mirror cached {call_ms:.3f} ms = {n / call_ms / 1e6:.3f} GB/s; kernel by raw "
           f"launch {kernel_ms:.4f} ms [{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = "
@@ -3704,6 +3839,67 @@ def _uncased_rounds(data: bytes, runs, got) -> int:
     return sum(start < end for start, _ in runs) + 1
 
 
+def _plan_survivors(hay, n, needle: bytes, plan) -> int:
+    """Start positions of ``hay[:n]`` where the needle's bytes at the filter
+    plan's offsets all match (plain torch on the card)."""
+    m = n - len(needle) + 1
+    mask = None
+    for o in plan:
+        eq = hay[o: o + m] == needle[o]
+        mask = eq if mask is None else mask & eq
+    return int(mask.sum())
+
+
+def _search_parts(hay, n, lo, words, sync) -> dict:
+    """One ``search_positions(hay, n, "first", byteset_words=words, lo=lo)``
+    and the pull of its answer, in parts: host-clock ms of each step of the
+    wrapper (the argument checks, the host arguments cached and made anew,
+    the scratch allocation, the C call with its arguments made beforehand:
+    a memset and one launch, the same through ``_launch``, the ``int()``
+    pull of an answer already computed), the memset's and the kernel's
+    device time by CUDA events, and the whole on the host clock."""
+    import torch
+    from stringzilla_tpu_torch.ops import find_kernel as F
+
+    reps = 200
+
+    def host(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        sync()
+        return ms
+
+    raw = words.tobytes()
+    args = F._host_args(None, raw)
+    scratch = torch.empty(3, dtype=torch.int64, device=hay.device)
+    launch = lambda: F._launch(hay, n, "first", args, None, 1, lo, n - 1, scratch)
+    sms, stream = _launch_env(hay.device)
+    kind, n_off, head, offsets, set_words, _ = args
+    call = (hay.data_ptr(), n, F.MODES["first"], kind, head, None, 1, offsets, n_off, set_words,
+            lo, n - 1, scratch.data_ptr(), sms, stream)
+    launch()
+    sync()
+    answer = scratch[2]
+    parts = {
+        "_prepare": host(lambda: F._prepare(hay, n, "first", None, words, lo, None)),
+        "host arguments (cached)": host(lambda: F._host_args(None, raw)),
+        "host arguments (made)": host(lambda: F._host_args.__wrapped__(None, raw)),
+        "scratch allocation": host(lambda: torch.empty(3, dtype=torch.int64, device=hay.device)),
+        "C call (memset and launch)": host(_raw_launch("sz_find_search", *call)),
+        "_launch (stream lookup and C call)": host(launch),
+        "int() pull": host(lambda: int(answer)),
+    }
+    parts["device time (CUDA events, each launch queued alone)"] = float(
+        _time_queued_ms(launch, 10, sync))
+    parts["whole, host clock"] = host(lambda: int(F.search_positions(hay, n, "first",
+                                                                      byteset_words=words, lo=lo)))
+    return parts
+
+
 @contextlib.contextmanager
 def _no_native():
     """The host UTF-8 layer with its native library hidden: its numpy and
@@ -3831,7 +4027,7 @@ def _uncased_main_path(dev, sync, report):
     lut_ms = _time_ms(lambda: lookup_transform(mirror, lut), 10, sync)
     scan_ms = _time_ms(lambda: search_positions(folded, n, "first", needle=absent), 10, sync)
     set_ms = _time_ms(lambda: search_positions(mirror, n, "first", byteset_words=hi_ws), 10, sync)
-    lut_bound, scan_bound = _bound(0, 2.0 * mirror.numel())[0], _bound(FIND_OPS_PER_BYTE * n, n)[0]
+    lut_bound, scan_bound = _bound(0, 2.0 * mirror.numel())[0], _find_bounds(n, bytes(absent))[0]
     print(f"[perf] uncased search, ASCII text {n} bytes [{CARD}]: first call (mirror H2D, "
           f"byte_lut fold, {1 + _uncased_rounds(data, runs, want['absent'])} searches, "
           f"{len(runs)} patches) {first_ms:.3f} ms")
@@ -3844,24 +4040,28 @@ def _uncased_main_path(dev, sync, report):
           f"mirror {lut_ms:.4f} ms [{lut_ms.lo:.4f}-{lut_ms.hi:.4f}], bound {lut_bound:.4f} ms "
           f"(bytes), {100 * lut_bound / lut_ms:.1f}% of it; find_search, the absent needle over "
           f"the folded mirror (a full scan) {scan_ms:.4f} ms [{scan_ms.lo:.4f}-{scan_ms.hi:.4f}], "
-          f"bound {scan_bound:.4f} ms, {100 * scan_bound / scan_ms:.1f}% of it; the byteset "
+          f"bound {scan_bound:.4f} ms (bytes), {100 * scan_bound / scan_ms:.1f}% of it; the byteset "
           f">= 0x80 from 0 (to the first run at {runs[0][0]}) {set_ms:.4f} ms")
-    # is the absent needle's scan slow because its folded prefix "worker-"
-    # is in every line, so that most warps keep a candidate past the first
-    # needle byte? The same scan with a first byte that never occurs, and
-    # one cut to 16 bytes (no compare of byte 16 from memory), split it
+    # the absent needle's folded prefix "worker-" is in every line: a dense
+    # prefix. The same scan with a first byte that never occurs and cut to 16
+    # bytes, each with the offsets its filter plan compares and how many
+    # start positions match the needle at all of them
     absent_b = bytes(absent)
     probes = {"the absent needle": absent_b, "its first byte made \\x01": b"\x01" + absent_b[1:],
               "its first 16 bytes": absent_b[:16]}
     probe_ms = {name: _time_ms(lambda: search_positions(folded, n, "first", needle=
                                                        np.frombuffer(nd, np.uint8)), 10, sync)
                 for name, nd in probes.items()}
+    plans = {name: find_mod.filter_offsets(nd) for name, nd in probes.items()}
+    survivors = {name: _plan_survivors(folded, n, nd, plans[name]) for name, nd in probes.items()}
     hits = {j: int(search_positions(folded, n, "count", needle=absent[:j])) for j in (1, 7, 16)}
     print(f"[perf] find_search probe, ASCII text, {n} bytes [{CARD}]: full scans of the folded "
-          f"mirror: " + "; ".join(f"{name} {nd!r} {ms:.4f} ms [{ms.lo:.4f}-{ms.hi:.4f}]"
-                      for (name, nd), ms in zip(probes.items(), probe_ms.values()))
-          + f"; start positions where the needle's first j bytes match: "
-          + ", ".join(f"j = {j}: {c}" for j, c in hits.items()))
+          f"mirror: " + "; ".join(
+              f"{name} {nd!r} {ms:.4f} ms [{ms.lo:.4f}-{ms.hi:.4f}], plan "
+              f"offsets {plans[name]}, {survivors[name]} positions match "
+              f"there" for (name, nd), ms in zip(probes.items(), probe_ms.values()))
+          + f"; bound {scan_bound:.4f} ms (bytes); start positions where the needle's first j bytes "
+          f"match: " + ", ".join(f"j = {j}: {c}" for j, c in hits.items()))
     del s, mirror, folded, data, arr
 
     # -- the 256 MiB log: dense runs, the tier gives up --------------------------
@@ -3910,6 +4110,10 @@ def _uncased_main_path(dev, sync, report):
           f"then None {tier_ms:.3f} ms; one round's parts from byte {lo}: "
           + ", ".join(f"{name} {ms:.4f} ms" for name, ms in round_ms.items())
           + f" (the needle search runs once a call, the others once a round)")
+    parts = _search_parts(mirror, n, lo, hi_ws, sync)
+    print(f"[perf] uncased search, the log [{CARD}]: the round's byteset search from byte {lo} "
+          f"(the next byte >= 0x80 at {p_hi}) in parts, host clock unless named: "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in parts.items()))
     # on the card the tier never moves to the host: no native library raises,
     # before the new Str's mirrors are made
     fresh = szt.Str(body)

@@ -123,8 +123,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sz_fingerprints.restype = i
     lib.sz_fingerprints_merge.argtypes = [p, i, p, p, i, p, p, p]
     lib.sz_fingerprints_merge.restype = i
-    lib.sz_find_search.argtypes = [p, ll, i, i, p, p, ll, p, ll, ll, p, i, p]
+    lib.sz_find_search.argtypes = [p, ll, i, i, p, p, ll, p, i, p, ll, ll, p, i, p]
     lib.sz_find_search.restype = i
+    lib.sz_find_geometry.argtypes = [p]
+    lib.sz_find_geometry.restype = None
     lib.sz_utf8_validate_count.argtypes = [p, ll, p, p, i, p]
     lib.sz_utf8_validate_count.restype = i
     lib.sz_utf8_geometry.argtypes = [p]

@@ -2,11 +2,16 @@
 versions) against the JAX package: ``search_positions`` / ``find_long``
 against ``find_pallas`` in the Pallas interpreter, ``validate_count_raw``
 against ``_validate_count_raw``, and the port's ``ops.find`` against the JAX
-``ops.find``, on the same numpy-seeded bytes. Tolerance: exact equality of
-every integer result."""
+``ops.find``, on the same numpy-seeded bytes. The search kernel's own
+algorithm (tiles with a halo, a filter on ``filter_offsets``' offsets,
+verification of every needle byte) is held through ``kernel_model``, a
+numpy model of ``csrc/find.cu``, against the plain version and the JAX
+package. Tolerance: exact equality of every integer result."""
 
 import numpy as np
 import pytest
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -19,6 +24,7 @@ from stringzilla_tpu_torch.ops import find as port_find  # noqa: E402
 from stringzilla_tpu_torch.ops import find_kernel, utf8_device  # noqa: E402
 from stringzilla_tpu_torch.ops.find_kernel import (  # noqa: E402
     find_long,
+    filter_offsets,
     search_positions,
     search_positions_reference,
 )
@@ -241,3 +247,262 @@ def test_ops_find_matches_jax(fn):
     assert port_find.find(t, needle) == jax_find.find(hay.tobytes(), needle)
     assert port_find.rfind(t, needle) == jax_find.rfind(hay.tobytes(), needle)
     assert port_find.count(t, needle) == jax_find.count(hay.tobytes(), needle)
+
+
+# -- the search kernel's algorithm: filter_offsets and a model of csrc/find.cu --
+
+def _funnel_r(lo, hi, r):
+    """``__funnelshift_r(lo, hi, r)`` on uint32 arrays, r a multiple of 8 below 32."""
+    if r == 0:
+        return lo
+    return ((lo >> np.uint32(r)) | (hi << np.uint32(32 - r))).astype(np.uint32)
+
+
+def kernel_model(hay, n, mode, needle=None, words=None, lo=0, hi=None, offsets=None,
+                 tile=find_kernel.TILE_POSITIONS, halo=find_kernel.HALO_BYTES, seed=0):
+    """``csrc/find.cu``'s search in numpy: tile t holds bytes [at, at + avail)
+    of the haystack, at = base + t * tile, in a stage of tile + halo bytes
+    whose other bytes are whatever a stage held before (random here); its
+    positions start at at - lead. Each 4-byte word of a tile ANDs one
+    inexact zero-byte test a filter offset (the word at that offset
+    funnel-shifted into place); flagged positions in [lo, hi] are verified
+    byte by byte, from the stage while it holds them and from the haystack
+    past it. Returns the kernel's answer as an int."""
+    hay = np.asarray(hay, np.uint8)
+    k = 1 if needle is None else len(needle)
+    lo = max(int(lo), 0)
+    hi = n - k if hi is None else min(int(hi), n - k)
+    if hi < lo:
+        return 0 if mode == "count" else -1
+    rng = np.random.default_rng(seed)
+    if needle is not None:
+        needle = np.frombuffer(bytes(needle), np.uint8)
+        offsets = filter_offsets(needle) if offsets is None else offsets
+        lead = offsets[0]
+        deltas = [o - lead for o in offsets]
+        pats = [np.uint32(0x01010101 * int(needle[o])) for o in offsets]
+    else:
+        lead = 0
+        table = find_kernel._byteset_table(np.asarray(words, np.uint32))
+    base = (lo + lead) & ~15
+    tiles = (hi + lead - base) // tile + 1
+    hits = []
+    for t in range(tiles):
+        at = base + t * tile
+        avail = min(tile + halo, n - at)
+        stage = rng.integers(0, 256, tile + halo, dtype=np.uint8)
+        stage[:avail] = hay[at: at + avail]
+        S = stage.view("<u4")
+        u = np.arange(tile // 4)
+        if needle is None:
+            flagged = table[stage[:tile].reshape(-1, 4)]
+        else:
+            ones = np.uint32(0x01010101)
+            y = S[u] ^ pats[0]
+            acc = (y - ones) & ~y
+            for d, pat in zip(deltas[1:], pats[1:]):
+                w, r = d // 4, 8 * (d % 4)
+                y = _funnel_r(S[u + w], S[u + w + 1], r) ^ pat
+                acc &= (y - ones) & ~y
+            flagged = ((acc[:, None] >> (8 * np.arange(4, dtype=np.uint32) + 7)) & 1).astype(bool)
+        for uq, s in zip(*np.nonzero(flagged)):
+            p = at - lead + 4 * int(uq) + int(s)
+            if p < lo or p > hi:
+                continue
+            if needle is not None:
+                rel = p - at + np.arange(k)
+                inside = (rel >= 0) & (rel < avail)
+                got = np.where(inside, stage[np.clip(rel, 0, tile + halo - 1)],
+                               hay[np.minimum(p + np.arange(k), n - 1)])
+                if not np.array_equal(got, needle):
+                    continue
+            hits.append(p)
+    if mode == "count":
+        return len(hits)
+    if not hits:
+        return -1
+    return min(hits) if mode == "first" else max(hits)
+
+
+# the filter's plans the tests hold the kernel model under: the kernel's
+# own, and the first and last reachable byte
+PLANS = {"rarest": filter_offsets,
+         "first and last": lambda nd: tuple(sorted({0, min(len(nd) - 1, find_kernel.REACH)}))}
+
+
+@pytest.mark.parametrize("count", [2, 3, 4])
+@settings(max_examples=150, deadline=None)
+@given(needle=st.binary(min_size=1, max_size=300))
+def test_filter_offsets_properties(count, needle):
+    """Deterministic, ascending and distinct, within [0, k) and the halo's
+    reach, the last reachable byte always among them, FILTER_OFFSETS of
+    them (fewer only for a shorter needle), distinct values while the
+    reachable bytes have them."""
+    saved, find_kernel.FILTER_OFFSETS = find_kernel.FILTER_OFFSETS, count
+    try:
+        got = filter_offsets(needle)
+        assert got == filter_offsets(bytes(needle)) == filter_offsets(
+            np.frombuffer(needle, np.uint8))
+    finally:
+        find_kernel.FILTER_OFFSETS = saved
+    k = len(needle)
+    last = min(k - 1, find_kernel.REACH)
+    assert list(got) == sorted(set(got))
+    assert got[0] >= 0 and got[-1] == last and got[-1] - got[0] <= find_kernel.REACH
+    assert len(got) == min(count, last + 1)
+    values = [needle[j] for j in got]
+    assert len(set(values)) == min(len(got), len(set(needle[: last + 1])))
+
+
+def test_filter_offsets_pick_rare_bytes():
+    """The plan on the probe needles: a dense ASCII prefix gives way to
+    punctuation and digits, a control byte is taken first."""
+    assert filter_offsets(b"worker-99 request") == (6, 7, 16)
+    assert filter_offsets(b"\x01orker-99 request") == (0, 6, 16)
+    assert filter_offsets(b"XqZwV") == (0, 2, 4)
+    assert filter_offsets(b"a") == (0,)
+    assert filter_offsets(b"aaaa") == (0, 1, 3)
+    assert filter_offsets(b"ab") == (0, 1)
+    assert filter_offsets(bytes(300))[-1] == find_kernel.REACH
+    with pytest.raises(ValueError):
+        filter_offsets(b"")
+
+
+def test_geometry_and_host_args():
+    """The geometry the kernel assumes, and the host arguments of a needle
+    and of a byteset as the C call reads them."""
+    g = find_kernel.GEOMETRY
+    assert g[0] == find_kernel.TILE_POSITIONS and g[1] == find_kernel.HALO_BYTES
+    assert find_kernel.TILE_POSITIONS % (4 * 256) == 0 and find_kernel.HALO_BYTES % 16 == 0
+    assert find_kernel.REACH == find_kernel.HALO_BYTES - 1 < find_kernel.HEAD_BYTES
+    assert find_kernel.FILTER_OFFSETS <= find_kernel.MAX_OFFSETS
+    needle = bytes(range(40, 240))
+    kind, n_off, *_, (head, offsets, words) = find_kernel._host_args(needle, None)
+    assert kind == 0 and tuple(offsets[:n_off]) == filter_offsets(needle)
+    assert head[:200].tobytes() == needle and not head[200:].any() and not words.any()
+    ws = port_find.byteset_mask(b"\x00\xff")
+    kind, n_off, *_, (head, offsets, words) = find_kernel._host_args(None, ws.tobytes())
+    assert kind == 1 and n_off == 0 and np.array_equal(words, ws) and not head.any()
+
+
+@pytest.mark.parametrize("tile", [64, find_kernel.TILE_POSITIONS])
+@pytest.mark.parametrize("plan", PLANS)
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(data=st.data())
+def test_kernel_model_matches_plain(plan, tile, data):
+    """The kernel's algorithm on drawn haystacks and needles of a small
+    alphabet (so that hits and near misses abound), drawn windows and every
+    mode: equal to ``search_positions_reference``. Bytes past n are junk."""
+    letters = data.draw(st.integers(1, 4))
+    n = data.draw(st.integers(0, 700))
+    seed = data.draw(st.integers(0, 2**32 - 1))
+    rng = np.random.default_rng(seed)
+    hay = np.concatenate([rng.integers(97, 97 + letters, n, dtype=np.uint8),
+                          rng.integers(0, 256, 64, dtype=np.uint8)])
+    k = data.draw(st.integers(1, 140))
+    if n >= k and data.draw(st.booleans()):
+        at = data.draw(st.integers(0, n - k))
+        needle = hay[at: at + k].copy()
+    else:
+        needle = rng.integers(97, 97 + letters, k, dtype=np.uint8)
+    lo = data.draw(st.integers(-3, n + 2))
+    hi = data.draw(st.one_of(st.none(), st.integers(-1, n + 2)))
+    mode = data.draw(st.sampled_from(["first", "last", "count"]))
+    flat = torch.from_numpy(hay.copy())
+    want = int(search_positions_reference(flat, n, mode, needle=needle, lo=lo, hi=hi))
+    got = kernel_model(hay, n, mode, needle=needle, lo=lo, hi=hi,
+                       offsets=PLANS[plan](needle), tile=tile, seed=seed)
+    assert got == want
+    if data.draw(st.booleans()):
+        words = port_find.byteset_mask(bytes(rng.integers(96, 100, 2, dtype=np.uint8)))
+        want = int(search_positions_reference(flat, n, mode, byteset_words=words, lo=lo, hi=hi))
+        assert kernel_model(hay, n, mode, words=words, lo=lo, hi=hi, tile=tile,
+                            seed=seed) == want
+
+
+DENSE_KS = list(range(1, 18)) + [130, 5000]
+
+
+def _dense_hay(needle, planted, salt):
+    """Two JAX blocks (less 777 bytes) of lowercase and digits with the
+    needle's first min(7, k - 1) bytes about every 90 bytes, each followed
+    by a byte the needle does not have there; with ``planted``, the needle
+    one byte either side of each tile edge, across each edge and near the
+    end. Bytes past n are junk."""
+    rng = _rng(salt)
+    size = jax_fp.BLOCK_ROWS * 2 * jax_fp.LANES
+    n = size - 777
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789", np.uint8)
+    buf = alphabet[rng.integers(0, len(alphabet), size)]
+    k = len(needle)
+    j = min(7, k - 1)
+    if j:
+        starts = np.arange(0, n - k - 8, 90) + rng.integers(0, 40, len(range(0, n - k - 8, 90)))
+        for i in range(j):
+            buf[starts + i] = needle[i]
+        buf[starts + j] = needle[j] ^ 0x40
+    if planted:
+        tile = find_kernel.TILE_POSITIONS
+        spots = [n - k - 3] + [p for e in range(tile, n - k, tile)
+                               for p in (e - 1, e + 1, e - k // 2 - 1)]
+        for p in spots:
+            if 0 <= p <= n - k:
+                buf[p: p + k] = needle
+    buf[n:] = rng.integers(0, 256, size - n)
+    return buf, n
+
+
+def _jax_answer(buf, n, hay2d, mode, needle, lo, hi):
+    """The JAX package's exact answer: its Pallas kernel for needles of at
+    most 16 bytes, ``find_long`` for longer ones unbounded, its dense XLA
+    tier (``ops.find``) on the window for the rest."""
+    k = len(needle)
+    if k <= jax_fp.MAX_OFFSETS:
+        return int(jax_fp.search_positions(hay2d, n, mode, needle=needle, lo=lo,
+                                           hi=hi if hi is not None else None))
+    if hi is None and lo == 0 and mode != "count":
+        return int(jax_fp.find_long(hay2d, n, needle, reverse=mode == "last"))
+    hi_ = n - k if hi is None else min(hi, n - k)
+    window = buf[lo: hi_ + k].tobytes() if hi_ >= lo else b""
+    if mode == "count":
+        return jax_find.count(window, needle.tobytes())
+    p = (jax_find.find if mode == "first" else jax_find.rfind)(window, needle.tobytes())
+    return p + lo if p >= 0 and hi_ >= lo else -1
+
+
+# the plain version's k shifted compares over m start positions: held only
+# where k * m stays under this (a 5,000-byte needle over the whole
+# haystack takes minutes on a loaded CPU), on narrow windows past that
+PLAIN_COMPARES = 50_000_000
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["absent", "planted"])
+@pytest.mark.parametrize("k", DENSE_KS)
+def test_dense_prefix_matches_jax(k, planted):
+    """A needle whose prefix is in every ~90-byte line, absent or planted at
+    tile edges, across them and near the end: the kernel model under both
+    plans and the JAX package agree in every mode, unbounded and on a
+    window that cuts tiles, and so does the plain version, on those windows
+    where it is affordable and on narrow ones around the first tile edge
+    and the end."""
+    rng = _rng(100 + k)
+    needle = np.frombuffer(b"worker-" + bytes(rng.integers(97, 123, max(k - 7, 0),
+                                                           dtype=np.uint8)), np.uint8)[:k].copy()
+    buf, n = _dense_hay(needle, planted, k)
+    hay2d = jnp.asarray(buf.reshape(-1, jax_fp.LANES))
+    flat = torch.from_numpy(buf.copy())
+    tile = find_kernel.TILE_POSITIONS
+    windows = [(0, None), (tile - 3, n - tile + 5), (tile - k - 3, tile + 2000),
+               (n - k - 2100, None)]
+    for lo, hi in windows:
+        m = (n - k if hi is None else hi) - lo + 1
+        for mode in ("first", "last", "count"):
+            want = _jax_answer(buf, n, hay2d, mode, needle, lo, hi)
+            if k * m <= PLAIN_COMPARES:
+                got = int(search_positions(flat, n, mode, needle=needle, lo=lo, hi=hi))
+                assert got == want, (mode, lo, hi)
+            for plan, offsets in PLANS.items():
+                assert kernel_model(buf, n, mode, needle=needle, lo=lo, hi=hi,
+                                    offsets=offsets(needle)) == want, (mode, lo, hi, plan)
+    if planted and k <= 130:
+        assert int(search_positions(flat, n, "count", needle=needle)) > 0
