@@ -196,7 +196,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    hash_short`` against ``hash_short_reference`` on every length 0-64 at
    odd offsets in blobs 0 and 1 byte past a 16-byte boundary, with seeds
    0, 42, 2**63 + 9 and 2**64 - 1 (where seed + length carries into the
-   high word), and on 2**19 + 777 tokens (grid-stride loops); ``hash_long``
+   high word), and on 2**19 + 777 tokens (grid-stride loops); its launch
+   geometry (``sz_hash_short_geometry``) against ``ops.hash_kernel.
+   SHORT_GEOMETRY``, then, into an ``out`` of -7s, groups of 32 G strings
+   (a warp's, taken in order of block count) of every mix of 1-4 blocks and
+   lengths over 64, a length of -1 every 97 strings, counts at the group
+   edges (32 G m - 1..32 G m + 1, 31-33) and strings that end at the blob's
+   last byte with the blob 0-3 bytes past a 4-byte boundary: the skipped
+   entries must keep their -7s; ``hash_long``
    against ``hash_long_reference`` on every length 65-300, 64k - 1, 64k and
    64k + 1 for k up to 16 and ``benches/tpu_sweep.py``'s 8 and 16 KiB
    buckets, at the same seeds (strings under ``WIDE_BYTES`` go to
@@ -510,6 +517,11 @@ def _find_bounds(nbytes, needle=None) -> tuple:
 # 64-bit adds (4 int32 ops); a block absorbed is one of each.
 AES_OPS = 48
 BLOCK_OPS = AES_OPS + 20
+# SASS instructions of one AESENC of hash_short's lookups (csrc/hash.cu
+# short_aesenc), counted by tools/hash_ab.py --sass in a loop of 8 of them
+# (the loop's counter and branch shared among the 8; the sm_90a build). A
+# diagnostic, printed beside the bound, which stays AES_OPS' count.
+HASH_SHORT_SASS_PER_AESENC = 40.38
 
 
 # int32 issue slots a DPX add-min/add-max (__viaddmin_s32 and kin, one
@@ -3074,6 +3086,19 @@ def _hash_ops(lengths) -> float:
                  + 4 * BLOCK_OPS * (full + 1).sum() + 9 * AES_OPS * (~short).sum())
 
 
+def _hash_short_sass_ms(lengths) -> str:
+    """The issue time of the AESENC that hash_short runs for strings of
+    these lengths (each block's and three more a string) at
+    HASH_SHORT_SASS_PER_AESENC instructions each and the int32 rate, a
+    diagnostic printed beside the bound."""
+    lengths = np.asarray(lengths, np.int64)
+    short = (lengths >= 0) & (lengths <= 64)
+    rounds = float(np.maximum((lengths[short] + 15) // 16, 1).sum() + 3 * short.sum())
+    ms = HASH_SHORT_SASS_PER_AESENC * rounds / INT32_OPS_PER_S * 1e3
+    return (f"its {rounds:.0f} AESENC at {HASH_SHORT_SASS_PER_AESENC} SASS instructions each "
+            f"would issue in {ms:.4f} ms at the int32 rate")
+
+
 def _hash_bytes(lengths) -> float:
     """Bytes the hash kernels must move: each string once, its start and
     length (int64) and its digest (8 bytes)."""
@@ -3104,16 +3129,56 @@ def _on_card_tape(rng, lengths, dev, skew=0):
             starts)
 
 
+def intersect_tokens() -> tuple:
+    """Phase 4f's ``intersect`` inputs, ``bench_hash_tokens``' shape: 2**20
+    tokens of 4-12 lowercase bytes a side (seed SEED), half of the second
+    drawn from the first, shuffled."""
+    rng = np.random.default_rng(SEED)
+
+    def tokens(count):
+        lens = rng.integers(4, 13, count)
+        blob = rng.integers(97, 123, int(lens.sum()), dtype=np.uint8).tobytes()
+        ends = np.cumsum(lens).tolist()
+        return [blob[e - n: e] for e, n in zip(ends, lens.tolist())]
+
+    first = tokens(INTERSECT_TOKENS)
+    second = [first[int(i)] for i in rng.permutation(INTERSECT_TOKENS)[: INTERSECT_TOKENS // 2]]
+    second += tokens(INTERSECT_TOKENS - len(second))
+    return first, [second[int(i)] for i in rng.permutation(len(second))]
+
+
+def _short_cases(rng, group):
+    """Lengths for hash_short's groups of 32 ``group`` strings: for each
+    pair of kinds (1-4 blocks, or a length over 64 that it skips), groups
+    with 0, 16, 32, ... of the first and the rest of the second, shuffled;
+    then groups of all five kinds in random proportions."""
+    size = 32 * group
+    kinds = [(0, 17), (17, 33), (33, 49), (49, 65), (65, 200)]
+    draw = lambda kind, count: rng.integers(*kinds[kind], count)
+    out = []
+    for a in range(len(kinds)):
+        for b in range(a + 1, len(kinds)):
+            for p in range(0, size + 1, 16):
+                out.append(rng.permutation(np.concatenate([draw(a, p), draw(b, size - p)])))
+    for _ in range(40):
+        kind = rng.choice(len(kinds), size, p=rng.dirichlet(np.ones(len(kinds))))
+        out.append(np.array([draw(k, 1)[0] for k in kind]))
+    return np.concatenate(out)
+
+
 def _check_hash_kernels(dev, sync, max_err):
     """Phase 3f: hash_short, hash_long and fill_random against their plain
     versions on the card, and against the host hash and golden vectors."""
     import torch
     from stringzilla_tpu_torch.ops import hash as host_hash
     from stringzilla_tpu_torch.ops.aes_kernel import fill_random_device, fill_random_reference
-    from stringzilla_tpu_torch.ops.hash_kernel import (KERNEL_LAUNCHES, WIDE_BYTES,
-                                                       hash_batch_device, hash_long,
+    from stringzilla_tpu_torch.ops.hash_kernel import (KERNEL_LAUNCHES, SHORT_GEOMETRY,
+                                                       WIDE_BYTES, hash_batch_device, hash_long,
                                                        hash_long_reference, hash_short,
                                                        hash_short_reference)
+    from stringzilla_tpu_torch.utils import cuda_build
+
+    import ctypes
 
     rng = np.random.default_rng(SEED + 40)
     err = {"hash_short": 0, "hash_long": 0, "hash_long_wide": 0, "fill_random": 0}
@@ -3151,6 +3216,57 @@ def _check_hash_kernels(dev, sync, max_err):
     many = rng.integers(0, 65, (1 << 19) + 777)
     same("hash_short", hash_short, hash_short_reference, _on_card_tape(rng, many, dev, 3), 42,
          f"{len(many)} tokens")
+    # hash_short's groups (csrc/hash.cu: a warp takes 32 G strings and
+    # hashes them in rounds of 32 in order of block count): its geometry
+    # against the module's, then groups of every mix of block counts and
+    # skipped lengths, counts at the group edges, strings that end at the
+    # blob's last byte; skipped entries (over 64 bytes, or negative) must
+    # keep what `out` held
+    geometry = (ctypes.c_int * 4)()
+    cuda_build.load().sz_hash_short_geometry(geometry)
+    _check(tuple(geometry)[:3] == SHORT_GEOMETRY,
+           f"sz_hash_short_geometry {tuple(geometry)} != {SHORT_GEOMETRY}")
+    group = SHORT_GEOMETRY[0]
+
+    def same_kept(blob, starts, lengths, seed, what):
+        """hash_short into an `out` of -7s against the plain version into
+        another; the skipped entries must still be -7."""
+        got = torch.full((starts.numel(),), -7, dtype=torch.int64, device=dev)
+        want = got.clone()
+        before = KERNEL_LAUNCHES["hash_short"]
+        hash_short(blob, starts, lengths, seed, got)
+        hash_short_reference(blob, starts, lengths, seed, want)
+        calls["hash_short"] += KERNEL_LAUNCHES["hash_short"] - before
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        err["hash_short"] = max(err["hash_short"], _digests_err(got, want))
+        lens = lengths.cpu().numpy()
+        skipped = (lens < 0) | (lens > 64)
+        _check(np.array_equal(got, want) and (got[skipped] == -7).all(),
+               f"hash_short {what} seed {seed}: differs from plain or wrote a skipped entry")
+        return int(skipped.sum())
+
+    mixes = _short_cases(rng, group)
+    tape = _on_card_tape(rng, mixes, dev, 1)
+    lens = tape[2].clone()
+    lens[::97] = -1  # negative lengths too
+    n_skip = same_kept(tape[0], tape[1], lens, 42, f"{len(mixes)} strings in mixed groups")
+    edges = sorted({max(1, 32 * group * m + d) for m in (0, 1, 2, 5) for d in (-1, 0, 1)}
+                   | {31, 32, 33})
+    for count in edges:
+        for seed in (0, 2**64 - 1):
+            tape = _on_card_tape(rng, rng.integers(0, 80, count), dev, count % 4)
+            same_kept(*tape[:3], seed, f"{count} strings (group edges)")
+    for skew in range(4):  # strings that end at the blob's last byte
+        for count in (1, 32 * group + 3):
+            lens = rng.integers(0, 65, count)
+            lens[-1] = rng.integers(1, 65)
+            host = rng.integers(0, 256, int(lens.sum()), dtype=np.uint8)
+            whole = torch.full((len(host) + skew + 8,), 0xA5, dtype=torch.uint8, device=dev)
+            blob = whole[skew: skew + len(host)]
+            blob.copy_(torch.from_numpy(host))
+            st = np.concatenate([[0], np.cumsum(lens)[:-1]])
+            same_kept(blob, torch.from_numpy(st).to(dev), torch.from_numpy(lens).to(dev), 5,
+                      f"{count} strings ending at the blob's last byte, skew {skew}")
 
     long_lens = (list(range(65, 301)) + [64 * k + d for k in range(2, 17) for d in (-1, 0, 1)]
                  + list(rng.integers(64 * 64 + 1, 64 * 128 + 63, 12))  # the 8 KiB bucket
@@ -3221,7 +3337,10 @@ def _check_hash_kernels(dev, sync, max_err):
                f"golden fill_random {length} nonce {nonce}")
     max_err.update(err)
     print(f"[kernel] hash_short: lengths 0-64 at odd offsets, 4 seeds (carry into the high "
-          f"word), {len(many)} tokens: {calls['hash_short']} launches equal the plain version")
+          f"word), {len(many)} tokens; groups of {32 * group} (G = {group}) of every mix of 1-4 "
+          f"blocks and skipped lengths ({len(mixes)} strings, {n_skip} skipped), counts "
+          f"{edges} at the group edges, strings ending at the blob's last byte at skews 0-3: "
+          f"{calls['hash_short']} launches equal the plain version, skipped entries untouched")
     print(f"[kernel] hash_long: lengths 65-300, 64k-1..64k+1, the 8/16 KiB buckets, 4 seeds; "
           f"hash_long_wide's ring edges (mP - 1..mP + 1 full chunks, P = 32, from "
           f"{WIDE_BYTES} B) and the quad's last lengths, at odd offsets and ending at the "
@@ -3268,19 +3387,8 @@ def _hash_main_path(dev, sync, report):
         return launch
 
     # -- intersect: bench_hash_tokens' tokens ----------------------------------
-    rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-
-    def tokens(count):
-        lens = rng.integers(4, 13, count)
-        blob = rng.integers(97, 123, int(lens.sum()), dtype=np.uint8).tobytes()
-        ends = np.cumsum(lens).tolist()
-        return [blob[e - n: e] for e, n in zip(ends, lens.tolist())]
-
-    first = tokens(INTERSECT_TOKENS)
-    second = [first[int(i)] for i in rng.permutation(INTERSECT_TOKENS)[: INTERSECT_TOKENS // 2]]
-    second += tokens(INTERSECT_TOKENS - len(second))
-    second = [second[int(i)] for i in rng.permutation(len(second))]
+    first, second = intersect_tokens()
     print(f"[setup] intersect: 2 x {INTERSECT_TOKENS} tokens in {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     ia, ib = _launched("intersect", counters, ["hash_short"],
@@ -3317,14 +3425,17 @@ def _hash_main_path(dev, sync, report):
     keys = torch.from_numpy((a_hash ^ np.uint64(1 << 63)).view(np.int64)).to(dev)
     sort_ms = _time_ms(lambda: torch.sort(keys, stable=True), 20, sync)
     bound_ms, bound_by = _bound(_hash_ops(dt.lengths), _hash_bytes(dt.lengths))
+    sass_ms = _hash_short_sass_ms(dt.lengths)
     _profile(f"intersect 2 x {INTERSECT_TOKENS}", lambda: szt.intersect(first, second), sync,
              kernel_ms)
     print(f"[perf] intersect 2 x {INTERSECT_TOKENS} tokens: call {call_ms:.3f} ms = _distinct "
           f"{parts[0]:.3f} + hashing (two hash_batch_device, tape build, H2D and pull) "
           f"{parts[1]:.3f} + device sort and match {parts[2]:.3f} + exact check {parts[3]:.3f} ms")
-    print(f"[perf] hash_short on {len(a_strs)} distinct tokens: kernel {kernel_ms:.4f} ms = "
-          f"{len(a_strs) / kernel_ms / 1e3:.3f} Mtokens/s; plain {plain_ms:.3f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by}); torch.sort of {len(a_hash)} int64 keys {sort_ms:.4f} ms")
+    print(f"[perf] hash_short on {len(a_strs)} distinct tokens: kernel {kernel_ms:.4f} ms "
+          f"[{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = {len(a_strs) / kernel_ms / 1e3:.3f} "
+          f"Mtokens/s; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it; {sass_ms}; torch.sort of {len(a_hash)} "
+          f"int64 keys {sort_ms:.4f} ms")
     report["hash_short"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, library_ms=None)
     del first, second, a_strs, b_strs, dt, args, keys
@@ -3399,12 +3510,20 @@ def _hash_main_path(dev, sync, report):
         _check(np.array_equal(got[sample], want), "Strs.hashes (words) != host hash_batch")
         kernel_ms = _time_ms(raw_hash_short(args), 10, sync)
         bound_ms, bound_by = _bound(_hash_ops(wl), _hash_bytes(wl))
+        blocks = hash_kernel.short_blocks(wl)
+        steps = hash_kernel.short_steps(wl)
         print(f"[engine] Strs.hashes on {len(words)} words of {int(wl.min())}-{int(wl.max())} "
               f"bytes (the first {WORDS_BYTES >> 20} MiB split on spaces): equal the plain "
               f"version on the card and the host on {HASH_SAMPLE} samples")
         print(f"[perf] Strs.hashes {len(words)} words: split {split_ms:.3f} ms; call with the "
-              f"slice's mirror H2D {call_ms:.3f} ms; hash_short kernel {kernel_ms:.4f} ms = "
-              f"{len(words) / kernel_ms / 1e3:.3f} Mtokens/s; bound {bound_ms:.4f} ms ({bound_by})")
+              f"slice's mirror H2D {call_ms:.3f} ms; hash_short kernel {kernel_ms:.4f} ms "
+              f"[{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}] = {len(words) / kernel_ms / 1e3:.3f} "
+              f"Mtokens/s; bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}% "
+              f"of it; {_hash_short_sass_ms(wl)}; blocks 1-4: "
+              f"{np.bincount(blocks, minlength=5)[1:].tolist()}, absorb lane-steps "
+              f"{steps / blocks.sum():.3f} x the strings' blocks in the kernel's order "
+              f"({hash_kernel.short_steps(wl, None) / blocks.sum():.3f} x a thread a string in "
+              f"index order)")
         sort_words = szt.Strs(words[:SORT_WORDS].to_list())  # a copy: the file closes
         del words, head, starts, lengths, args, plain, got
         f.close()

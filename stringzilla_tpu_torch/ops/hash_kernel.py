@@ -25,8 +25,11 @@ its own strings and leaves the others' entries as they are.
 The JAX module buckets strings by block count (short) or dyadic chunk
 count (long) and packs each bucket into byte planes, because each bucket
 is a compiled shape; here a thread (short), four or a warp (long) read each
-string straight from the blob at its own offset, so nothing is bucketed or
-padded. The JAX module hashes strings over 2 MiB on the host (a VMEM
+string straight from the blob at its own offset, so nothing is padded. Only
+``hash_short`` groups by block count, inside the kernel: a warp takes
+32 G consecutive strings and hashes them in rounds of 32 in order of their
+block count (``short_order`` is that order), so the lanes of a round run
+about their own strings' blocks. The JAX module hashes strings over 2 MiB on the host (a VMEM
 limit); the card has no such limit, and every length runs on the device.
 """
 
@@ -43,7 +46,8 @@ from .tape import Tape
 
 __all__ = ["hash_tokens_raw", "hash_batch_device", "hash_bounds_device", "hash_long_device",
            "hash_short", "hash_long", "hash_short_reference", "hash_long_reference",
-           "hash_long_plan", "kernel_routes", "KERNEL_LAUNCHES", "SHORT_MAX", "WIDE_BYTES"]
+           "hash_long_plan", "kernel_routes", "short_blocks", "short_order", "short_steps",
+           "KERNEL_LAUNCHES", "SHORT_MAX", "SHORT_GEOMETRY", "WIDE_BYTES"]
 
 # Launches of the CUDA kernels, counted where the wrappers launch them
 # (hash_long launches hash_long, hash_long_wide or both).
@@ -206,6 +210,56 @@ def hash_long_plan(count: int, sms: int, kernel: str) -> tuple[int, int]:
     threads = min(_MAX_THREADS, max(32, -(-per_sm // 32) * 32))
     blocks = min(-(-threads_needed // threads), sms * _BLOCKS_PER_SM)
     return threads, blocks
+
+
+# hash_short's launch, as csrc/hash.cu's sz_hash_short_geometry reports it:
+# (G, threads a CTA, CTAs an SM). A warp takes 32 G consecutive strings at a
+# time and hashes them in G rounds of 32 in order of their block count.
+SHORT_GEOMETRY = (4, 1024, 1)
+
+
+def short_blocks(lengths) -> np.ndarray:
+    """Each string's 16-byte block count on the short path (1-4, a string
+    of 0 bytes one), 0 for a length outside 0-64, which it does not hash."""
+    lengths = np.asarray(lengths, np.int64)
+    blocks = np.maximum((lengths + 15) // 16, 1)
+    return np.where((lengths >= 0) & (lengths <= SHORT_MAX), blocks, 0)
+
+
+def short_order(lengths, group: int = SHORT_GEOMETRY[0]) -> tuple[np.ndarray, np.ndarray]:
+    """The order in which ``hash_short`` takes the strings of these host
+    lengths, which the kernel's ranking computes: ``(order, bounds)``, where
+    ``order[bounds[g]:bounds[g + 1]]`` are the indices of group g's hashed
+    strings (group g is strings ``32 group g`` to ``32 group (g + 1) - 1``,
+    the last one shorter) in the order of its rounds (round r, lane l takes
+    its entry 32 r + l): block counts ascending, a count's strings in index
+    order. Strings of lengths outside 0-64 are in no group's order."""
+    blocks = short_blocks(lengths)
+    size = 32 * group
+    n_groups = -(-len(blocks) // size)
+    idx = np.nonzero(blocks)[0]
+    order = idx[np.lexsort((idx, blocks[idx], idx // size))]
+    bounds = np.searchsorted(order // size, np.arange(n_groups + 1))
+    return order, bounds
+
+
+def short_steps(lengths, group: int | None = SHORT_GEOMETRY[0]) -> int:
+    """Lane-steps of block absorption the warps of ``hash_short`` run on
+    these lengths: each round of 32 lanes runs as many steps as its longest
+    string has blocks. ``group=None`` is a thread a string in index order
+    (rounds of 32 consecutive strings), as before the grouping."""
+    blocks = short_blocks(lengths)
+    if group is None:
+        firsts = np.arange(0, len(blocks), 32)
+    else:
+        order, bounds = short_order(lengths, group)
+        blocks = blocks[order]
+        rounds = -(-np.diff(bounds) // 32)  # each group's rounds
+        nth = np.arange(rounds.sum()) - np.repeat(np.cumsum(rounds) - rounds, rounds)
+        firsts = np.repeat(bounds[:-1], rounds) + 32 * nth
+    if len(firsts) == 0:
+        return 0
+    return int(32 * np.maximum.reduceat(blocks, firsts).sum())
 
 
 def _launch(kernel: str, blob, starts, lengths, seed, out):

@@ -134,6 +134,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u64 = ctypes.c_ulonglong
     lib.sz_hash_short.argtypes = [p, ll, p, p, ll, u64, p, i, p]
     lib.sz_hash_short.restype = i
+    lib.sz_hash_short_geometry.argtypes = [p]
+    lib.sz_hash_short_geometry.restype = None
     for name in ("sz_hash_long", "sz_hash_long_wide"):
         getattr(lib, name).argtypes = [p, ll, p, p, ll, u64, ll, p, i, i, p]
         getattr(lib, name).restype = i
