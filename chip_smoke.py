@@ -310,6 +310,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    positions that match at the plan's offsets); and splits one round's
    byteset search on the log into the wrapper's host steps, the launch's
    device time and the pull.
+5. Split scopes and the engine server: prints ``torch.cuda.device_count()``
+   and ``DeviceScope().device_count``; then, over
+   ``DeviceScope(devices=["cuda:0"] * SPLIT_WAYS)`` (and over every card
+   where more than one is visible), the headline, phase 4b's proteins
+   under NW with affine gaps, phase 4d's fingerprint lines (``ndim=256``),
+   ``sharded_find``/``rfind``/``count`` on phase 4e's 1 GiB buffer (a
+   needle planted across every shard's end, and one that is absent),
+   ``sharded_hashes`` on phase 4f's 2^20 intersect tokens and
+   ``sharded_argsort`` of its 2^20 words' keys. Counts are reset before
+   each scope's calls and read after: ``myers_tier_a``, the column DP,
+   ``byte_lut``, ``fingerprint_minhash``, ``find_search`` and
+   ``hash_short`` must launch. Each result must equal the one-card result
+   bit for bit; each call is timed beside the one-card call (host clock,
+   pull included; a split on one card times the cost of splitting, not a
+   speedup). Then ``serve.EngineServer`` on ``cuda:0`` on a socket in a
+   temporary directory: one request of each op (the headline as
+   ``levenshtein``, ``levenshtein_utf8`` on phase 4d's mixed set,
+   ``needleman_wunsch`` and ``smith_waterman`` on the proteins with their
+   class table, ``fingerprints`` on the lines, ``hash`` on the tokens,
+   ``sha256`` on 2^16 of them), each answer equal to the direct call and
+   its round trip timed beside it, then a bad request (refused) and a good
+   one. Last, ``byte_lut`` through its wrapper beside the library's
+   ``lut[x.long()]`` at 1 GiB and 256 MiB, equal. Every figure is printed
+   beside the card's name and power limit.
 
 Phases 4-4g also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it; a trace whose
@@ -439,6 +463,15 @@ DOC_BIG = 3 << 20
 FILL_BYTES = 1 << 28
 SHA_TOKENS = 1 << 16
 SORT_WORDS = 1 << 20
+# Phase 5: the scope that splits one card four ways; phase 4e's haystack and
+# phase 4f's sort keys, kept by those phases for it (MAIN_INPUTS); the needle
+# planted 2 bytes before each shard's end, and one that is never in the
+# haystack; the SHA-256 request's tokens.
+SPLIT_WAYS = 4
+MAIN_INPUTS: dict = {}
+EDGE_NEEDLE = b"EDGE!"
+ABSENT_NEEDLE = b"QUIET!"
+SERVE_SHA_TOKENS = 1 << 16
 # Phase 3g: the CPU tests' shapes (m < n, m > n, m = n, and the three where
 # the JAX wavefront_score_mim raises) under three cost sets, sweeps to a
 # small d_end (a first stage of zero steps), two pairs of 4,000-8,000 chars.
@@ -1170,21 +1203,22 @@ def rune_launch(block, dev, seg=None, tables=None):
 def _engine_blocks(engine, qs, cs, keep):
     """The ``myers`` calls one call of ``engine`` makes whose query block
     and alphabet pass ``keep``: ``[(block, keywords)]``, each block the
-    engine's own packed ``(q_t, qlens, cands_t, clens)``."""
-    from stringzilla_tpu_torch.models import similarities as sim_mod
+    engine's own packed ``(q_t, qlens, cands_t, clens)`` (the engine
+    reaches ``myers`` through ``parallel.cross``)."""
+    from stringzilla_tpu_torch.parallel import cross as cross_mod
 
-    real, calls = sim_mod.myers, []
+    real, calls = cross_mod.myers, []
 
     def spy(q_t, qlens, cands_t, clens, alphabet=256, **kw):
         if keep(q_t, alphabet):
             calls.append(((q_t, qlens, cands_t, clens), kw))
         return real(q_t, qlens, cands_t, clens, alphabet=alphabet, **kw)
 
-    sim_mod.myers = spy
+    cross_mod.myers = spy
     try:
         engine(qs, cs)
     finally:
-        sim_mod.myers = real
+        cross_mod.myers = real
     return calls
 
 
@@ -2872,6 +2906,7 @@ def _buffer_main_path(dev, sync, report):
         hay[p: p + 130] = long
     data, needle, lb = hay.tobytes(), b"XqZwV", long.tobytes()
     lo, hi = n // 3 + 1, 2 * n // 3 + 130
+    MAIN_INPUTS["find_hay"] = hay  # phase 5 splits it
     print(f"[setup] find: {n} random lowercase bytes in {time.perf_counter() - t0:.3f} s")
     calls = {
         "find": (lambda s: s.find(needle), lambda: data.find(needle)),
@@ -3619,6 +3654,7 @@ def _hash_main_path(dev, sync, report):
     _check(np.array_equal(order, sort_words.order()), "argsort_strings(prefer_device) != host")
     maxlen = int(sort_words.lengths.max())
     keys = sort_mod.pack_pgram_keys(items)
+    MAIN_INPUTS["sort_keys"] = keys  # phase 5 sorts them split
     pad = np.full(((1 << (len(items) - 1).bit_length()) - len(items), keys.shape[1]), 0xFFFFFFFF,
                   np.uint32)
     keys = np.concatenate([keys, pad])
@@ -4302,8 +4338,186 @@ def _uncased_main_path(dev, sync, report):
     print(f"[engine] launches on the uncased search's main path: {launches}")
 
 
+# -- phase 5: split scopes and the engine server ---------------------------------
+
+def _split_main_path(dev, sync, report):
+    """Phase 5: the split route over ``DeviceScope(devices=[dev] *
+    SPLIT_WAYS)``, and over every visible card where there are several,
+    each result bit for bit the one-card result; then the engine server on
+    ``dev``, each answer equal to the direct call; then ``byte_lut`` beside
+    the library's ``lut[x.long()]`` at 1 GiB and 256 MiB."""
+    import shutil
+    import tempfile
+
+    import torch
+    from stringzilla_tpu_torch import (DeviceScope, Fingerprints, LevenshteinDistances,
+                                       LevenshteinDistancesUTF8, NeedlemanWunschScores,
+                                       SmithWatermanScores, Tape)
+    from stringzilla_tpu_torch.ops import find_kernel, fingerprints_kernel, hash_kernel, memory
+    from stringzilla_tpu_torch.ops import myers as myers_mod
+    from stringzilla_tpu_torch.ops import similarity_dp
+    from stringzilla_tpu_torch.ops.find_kernel import search_positions
+    from stringzilla_tpu_torch.ops.hash_kernel import hash_batch_device
+    from stringzilla_tpu_torch.ops.memory import lookup_transform
+    from stringzilla_tpu_torch.ops.sha256 import sha256_batch
+    from stringzilla_tpu_torch.ops.sort import _device_argsort
+    from stringzilla_tpu_torch.parallel import cross
+    from stringzilla_tpu_torch.serve import EngineClient, EngineServer
+
+    one = DeviceScope(device=dev)
+    cards = torch.cuda.device_count()
+    print(f"[split] torch.cuda.device_count() {cards}; DeviceScope().device_count "
+          f"{DeviceScope().device_count}")
+    scopes = {f"{SPLIT_WAYS} x {dev}": DeviceScope(devices=[dev] * SPLIT_WAYS)}
+    if cards > 1:
+        scopes[f"{cards} cards"] = DeviceScope()
+
+    t0 = time.perf_counter()
+    hq, hc = (Tape.from_strings(x) for x in headline_strings())
+    b2c, table, pq, pc = _proteins(np.random.default_rng(SEED))
+    pq, pc = Tape.from_strings(pq), Tape.from_strings(pc)
+    lines = Tape.from_strings(_fp_workloads()[0])
+    first = intersect_tokens()[0]
+    tokens, sha_tokens = Tape.from_strings(first), Tape.from_strings(first[:SERVE_SHA_TOKENS])
+    tok_blob = torch.from_numpy(tokens.data).to(dev)
+    keys = MAIN_INPUTS["sort_keys"]
+    hay = torch.from_numpy(MAIN_INPUTS["find_hay"]).to(dev)
+    n = hay.numel()
+    # the needle across every shard's end, of each scope's split
+    planted = sorted({e - 2 for sc in scopes.values()
+                      for e in range(-(-n // sc.device_count), n, -(-n // sc.device_count))})
+    edge = torch.from_numpy(np.frombuffer(EDGE_NEEDLE, np.uint8).copy()).to(dev)
+    for p in planted:
+        hay[p: p + len(EDGE_NEEDLE)] = edge
+    sync()
+    print(f"[setup] phase 5 workloads in {time.perf_counter() - t0:.3f} s; {EDGE_NEEDLE!r} "
+          f"planted at {planted}")
+
+    lev = LevenshteinDistances()
+    nw = NeedlemanWunschScores(b2c, table, open=-10, extend=-1)
+    fp = Fingerprints(ndim=256, seed=42)
+    work = {  # name: (the one-card call, the split call on a scope)
+        "headline": (lambda: lev(hq, hc, device=one), lambda sc: lev(hq, hc, device=sc)),
+        "proteins NW affine": (lambda: nw(pq, pc, device=one),
+                               lambda sc: nw(pq, pc, device=sc)),
+        "fingerprint lines": (lambda: np.stack(fp(lines, device=one)),
+                              lambda sc: np.stack(fp(lines, device=sc))),
+        "hashes": (lambda: hash_batch_device(tokens, 0, device=dev),
+                   lambda sc: cross.sharded_hashes(tok_blob, tokens.offsets[:-1], tokens.lengths,
+                                                   0, sc).cpu().numpy().view(np.uint64)),
+        "argsort": (lambda: _device_argsort(keys, dev),
+                    lambda sc: cross.sharded_argsort(keys, sc).cpu().numpy()),
+    }
+    expect = {}
+    for name, split, mode in (("find", cross.sharded_find, "first"),
+                              ("rfind", cross.sharded_rfind, "last"),
+                              ("count", cross.sharded_count, "count")):
+        for label, needle in (("planted", EDGE_NEEDLE), ("absent", ABSENT_NEEDLE)):
+            nd = np.frombuffer(needle, np.uint8)
+            work[f"{name} {label}"] = (
+                lambda mode=mode, nd=nd: int(search_positions(hay, n, mode, needle=nd)),
+                lambda sc, split=split, needle=needle: split(hay, needle, sc))
+        expect[f"{name} planted"] = {"find": planted[0], "rfind": planted[-1],
+                                     "count": len(planted)}[name]
+        expect[f"{name} absent"] = 0 if name == "count" else -1
+
+    want = {name: one_call() for name, (one_call, _) in work.items()}
+    for name, value in expect.items():
+        _check(want[name] == value, f"one-card {name}: {want[name]} != {value}")
+    counters = [myers_mod.KERNEL_LAUNCHES, similarity_dp.KERNEL_LAUNCHES,
+                memory.KERNEL_LAUNCHES, fingerprints_kernel.KERNEL_LAUNCHES,
+                find_kernel.KERNEL_LAUNCHES, hash_kernel.KERNEL_LAUNCHES]
+    for sc_name, sc in scopes.items():
+        sync()
+        _reset(*counters)
+        got = {name: split(sc) for name, (_, split) in work.items()}
+        sync()
+        launches = {k: v for c in counters for k, v in c.items() if v}
+        print(f"[engine] launches on the split path over {sc_name}: {launches}")
+        for k in ("myers_tier_a", "byte_lut", "fingerprint_minhash", "find_search", "hash_short"):
+            _check(launches.get(k, 0) > 0, f"split over {sc_name}: {k} was not launched")
+        _check(launches.get("similarity_dp", 0) + launches.get("similarity_dp_warp", 0) > 0,
+               f"split over {sc_name}: the column DP was not launched")
+        for name, value in got.items():
+            a, b = np.asarray(value), np.asarray(want[name])
+            _check(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b),
+                   f"split over {sc_name}: {name} differs from the one-card result")
+        print(f"[engine] split over {sc_name}: {len(work)} results equal the one-card results "
+              f"bit for bit: {', '.join(work)}")
+    for name, (one_call, split) in work.items():
+        parts = [f"one card {_host_ms(one_call, sync, runs=2):.3f} ms"]
+        for sc_name, sc in scopes.items():
+            parts.append(f"{sc_name} {_host_ms(lambda: split(sc), sync, runs=2):.3f} ms")
+        print(f"[perf] split {name}: {'; '.join(parts)} ({CARD}; host clock, pull included; "
+              f"{SPLIT_WAYS} parts on one card time the cost of splitting, not a speedup)")
+
+    # -- the engine server on the card --------------------------------------------
+    utf8_q, utf8_c = (Tape.from_strings([s.encode() for s in x]) for x in _utf8_sets()[0][1:])
+    classes = {"byte_to_class": b2c, "costs": table}
+    requests = [  # op, call keywords, the direct call
+        ("levenshtein", dict(tapes={"queries": hq, "candidates": hc}),
+         lambda: [lev(hq, hc, device=one)]),
+        ("levenshtein_utf8", dict(tapes={"queries": utf8_q, "candidates": utf8_c}),
+         lambda: [LevenshteinDistancesUTF8()(utf8_q, utf8_c, device=one)]),
+        ("needleman_wunsch", dict(tapes={"queries": pq, "candidates": pc}, arrays=classes,
+                                  open=-10, extend=-1), lambda: [nw(pq, pc, device=one)]),
+        ("smith_waterman", dict(tapes={"queries": pq, "candidates": pc}, arrays=classes,
+                                open=-5, extend=-5),
+         lambda: [SmithWatermanScores(b2c, table, open=-5, extend=-5)(pq, pc, device=one)]),
+        ("fingerprints", dict(tapes={"texts": lines}, ndim=256),
+         lambda: list(Fingerprints(ndim=256)(lines, device=one))),
+        ("hash", dict(tapes={"texts": tokens}), lambda: [hash_batch_device(tokens, 0, device=dev)]),
+        ("sha256", dict(tapes={"texts": sha_tokens}),
+         lambda: [sha256_batch(sha_tokens, device=dev)]),
+    ]
+    tmp = tempfile.mkdtemp(prefix="sz-serve-")
+    server = EngineServer(os.path.join(tmp, "engines.sock"), one)
+    server.start_background()
+    client = EngineClient(server.path)
+    try:
+        for op, kwargs, direct in requests:
+            got, exp = client.call(op, **kwargs), direct()
+            _check(len(got) == len(exp) and all(
+                g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+                for g, w in zip(got, exp)), f"the server's {op} differs from the direct call")
+            trip_ms = _host_ms(lambda: client.call(op, **kwargs), sync, runs=2)
+            direct_ms = _host_ms(direct, sync, runs=2)
+            print(f"[perf] server {op}: round trip {trip_ms:.3f} ms, direct call "
+                  f"{direct_ms:.3f} ms ({CARD}); the answer equals the direct call's")
+        try:
+            client.call("no_such_op", tapes={"texts": [b"x"]})
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        _check(refused is not None and "unknown op" in refused,
+               f"the server answered a bad request: {refused}")
+        (again,) = client.call("hash", tapes={"texts": tokens})
+        _check(np.array_equal(again, want["hashes"]), "the server's answer after an error")
+        print(f"[engine] server on {dev}: {len(requests)} ops equal their direct calls; a bad "
+              f"request refused ({refused!r}), the next one answered")
+    finally:
+        client.close()
+        server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- byte_lut beside the library's call -----------------------------------------
+    lut = np.frombuffer(bytes(range(256)).swapcase(), np.uint8)
+    lut_t = torch.from_numpy(lut.copy()).to(dev)
+    for size in (1 << 30, 1 << 28):
+        x = hay[:size]
+        _check(torch.equal(lookup_transform(x, lut), lut_t[x.long()]),
+               f"byte_lut {size >> 20} MiB != lut[x.long()]")
+        kernel_ms = _time_ms(lambda: lookup_transform(x, lut), 10, sync)
+        library_ms = _time_ms(lambda: lut_t[x.long()], 3, sync)
+        print(f"[perf] byte_lut {size >> 20} MiB: kernel through its wrapper {kernel_ms:.4f} ms "
+              f"[{kernel_ms.lo:.4f}-{kernel_ms.hi:.4f}]; library lut[x.long()] {library_ms:.4f} "
+              f"ms [{library_ms.lo:.4f}-{library_ms.hi:.4f}]; equal ({CARD})")
+    del hay, tok_blob, x
+    torch.cuda.empty_cache()
+
+
 def run(dev) -> list:
-    """Phases 3-4h on ``dev``; returns each kernel's report entry."""
+    """Phases 3-5 on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
@@ -4316,7 +4530,7 @@ def run(dev) -> list:
     mains = [("4", _myers_main_path), ("4b", _dp_main_path), ("4c", _wavefront_main_path),
              ("4d", _fingerprint_main_path), ("4d", _utf8_main_path),
              ("4e", _buffer_main_path), ("4f", _hash_main_path), ("4g", _mim_main_path),
-             ("4h", _uncased_main_path)]
+             ("4h", _uncased_main_path), ("5", _split_main_path)]
     for (phase, fn), out in [(p, max_err) for p in phases] + [(m, report) for m in mains]:
         t0 = time.perf_counter()
         fn(dev, sync, out)
@@ -4388,10 +4602,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-4h: kernels against plain versions, then the main paths ---
+    # -- phases 3-5: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-4h in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-5 in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

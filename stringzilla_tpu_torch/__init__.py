@@ -10,9 +10,11 @@ Layout mirrors ``stringzilla_tpu`` so each module has a counterpart:
 * ``stringzilla_tpu_torch.ops``    — kernels' wrappers and plain versions,
   tapes and on-device packing
 * ``stringzilla_tpu_torch.models`` — engine classes and ``DeviceScope``
+* ``stringzilla_tpu_torch.parallel`` — work split over a scope's devices
 * ``stringzilla_tpu_torch.utils``  — device resolution, the CUDA kernel build
+* ``stringzilla_tpu_torch.serve``  — the engine server on a Unix socket
 
-Ported so far, on one device: ``LevenshteinDistances`` with any costs
+Ported so far: ``LevenshteinDistances`` with any costs
 (unit costs on the Myers kernel, others on the column DP),
 ``NeedlemanWunschScores`` and ``SmithWatermanScores`` (the column DP, with
 the byte-LUT kernel mapping bytes to cost classes), pairs with a string
@@ -30,8 +32,13 @@ streaming-search kernels first), the token views and the UAX-29/14
 segmenters, over a native host runtime (``native/tapecraft.cpp``, built
 with ``g++`` on first use) and generated UCD tables; Arrow import and
 export of ``Strs`` and ``Tape``; ``reset_capabilities``. Every name of the
-JAX package's ``__all__`` is here. Only scopes over several cards are not
-(``models/device_scope.py``).
+JAX package's ``__all__`` is here. A ``DeviceScope`` spans every visible
+card (or a list of devices): the engines split their candidates and
+``Fingerprints`` its documents over it (``parallel/cross.py``), and
+``serve.py`` answers engine requests from other processes. Not ported: the
+ring tier that scores one long pair over several devices
+(``parallel/ring.py``), scopes over several hosts, and the native host
+tiers for packing, hashing, SHA-256 and sort keys.
 """
 
 from .models.device_scope import DeviceScope

@@ -14,6 +14,11 @@ launch merges the documents the plan cut into byte ranges), writing the
 ``(docs, ndim)`` layout directly: no length buckets, no lane or dimension
 padding. The outputs are
 bit-identical to the reference's f64 engines and to the JAX package's.
+
+A scope over several devices splits the documents into one contiguous part
+a device (``parallel/cross.py`` ``sharded_fingerprints``): each device plans
+and fingerprints its own part, with the kernel parameters made there once,
+and the results are gathered on the scope's first device.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ..ops.fingerprints import DEFAULT_WINDOW_WIDTHS, derive_params
 from ..ops.fingerprints_kernel import fingerprint_all, kernel_params
 from ..ops.pack_device import device_tape
 from ..ops.tape import Tape
+from ..parallel.cross import sharded_fingerprints
 from .device_scope import DeviceScope, default_device_scope
 
 __all__ = ["Fingerprints"]
@@ -65,21 +71,25 @@ class Fingerprints:
         numpy arrays, or the given ``out=(hashes, counts)`` filled in place.
 
         ``device_out=True`` returns the same bits as two ``(n, ndim)`` int32
-        tensors on the scope's device and pulls nothing: int32 because
+        tensors on the scope's first device and pulls nothing: int32 because
         torch 2.11 cannot index a ``torch.uint32`` tensor on CUDA. Their
         ``.numpy().view(np.uint32)`` on the host is the host result; they
         are the input of ``ops.fingerprints.band_keys``."""
-        dev = (device or default_device_scope()).device
+        scope = device or default_device_scope()
         # a 1-D ndarray item of any dtype is its raw bytes, as the JAX
         # engine's bytes(item) takes it
         tape = texts if isinstance(texts, Tape) else Tape.from_strings(
             [s.tobytes() if isinstance(s, np.ndarray) and s.ndim == 1 else s
              for s in texts])
-        dt = device_tape(tape, dev)
-        # starts and lengths stay on the host, where the plan is made
-        hashes, counts = fingerprint_all(
-            dt.data, torch.from_numpy(dt.starts), torch.from_numpy(dt.lengths),
-            self._params_on(dev))
+        if scope.device_count > 1:
+            hashes, counts = sharded_fingerprints(tape.data, tape.offsets[:-1], tape.lengths,
+                                                  self._params_on, scope)
+        else:
+            dt = device_tape(tape, scope.device)
+            # starts and lengths stay on the host, where the plan is made
+            hashes, counts = fingerprint_all(
+                dt.data, torch.from_numpy(dt.starts), torch.from_numpy(dt.lengths),
+                self._params_on(scope.device))
         if device_out:
             return hashes, counts
         min_hashes = hashes.cpu().numpy().view(np.uint32)

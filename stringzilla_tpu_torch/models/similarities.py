@@ -33,10 +33,21 @@ tier over int32 runes. A collection with any malformed string is decoded
 on the host instead, each maximal invalid subpart becoming U+FFFD, as the
 reference does.
 
-Ported: everything on one device. A long pair that reaches the flat
-kernel may have up to ``MAX_FLAT_CELLS`` diagonal cells
-(``max(m + 1, n)``); beyond that it raises the ``ValueError`` of the JAX
-package's single-device path. None computes an approximate answer.
+A scope over several devices splits every dyadic candidate bucket into
+one contiguous part a device (``parallel/cross.py``): each device holds the
+queries and its own candidates (their bytes gathered into a blob of their
+own there, class-mapped there by the byte-LUT kernel; the rune tables built
+there), scores its blocks through ``sharded_myers`` or
+``sharded_similarity``, and the scores are gathered into one ``(nq, nc)``
+tensor on the scope's first device, pulled once. Long pairs run on the
+first device, as in the JAX package.
+
+A long pair that reaches the flat kernel may have up to
+``MAX_FLAT_CELLS`` diagonal cells (``max(m + 1, n)``); beyond that it
+raises the ``ValueError`` of the JAX package's single-device path. In a
+scope over several devices, where the JAX package sends such a pair to its
+ring tier, it raises ``NotImplementedError``: the ring is not ported yet.
+None computes an approximate answer.
 """
 
 from __future__ import annotations
@@ -46,15 +57,16 @@ import operator
 import numpy as np
 import torch
 
+from ..ops import wavefront as _wavefront
 from ..ops.memory import lookup_transform
-from ..ops.myers import build_rune_tables, myers
+from ..ops.myers import build_rune_tables
 from ..ops.pack_device import DeviceTape, device_tape, pack_chars
 from ..ops.similarity import (AffineGaps, ClassCosts, LinearGaps,
                               SimilarityConfig, UniformCosts)
-from ..ops.similarity_dp import similarity
 from ..ops.tape import Tape, round_up
 from ..ops.utf8_pack_device import decode_pack_device, rune_count_validity
 from ..ops.wavefront import config_costs, levenshtein_batch, wavefront_batch
+from ..parallel.cross import sharded_myers, sharded_similarity, split_bounds
 from .device_scope import DeviceScope, default_device_scope
 
 __all__ = [
@@ -67,6 +79,8 @@ __all__ = [
 ]
 
 _LONG_THRESHOLD = 4096  # a pair with a longer string runs on the wavefront tier
+_RING = ("ring_wavefront_score, which scores such a pair over a scope's devices, "
+         "is not ported yet (ROADMAP.md, queue 1 item 7: parallel/ring.py)")
 
 
 def _reject_integer_like(s) -> None:
@@ -112,6 +126,17 @@ def _offsets(lens: np.ndarray) -> np.ndarray:
     offs = np.zeros(len(lens), dtype=np.int64)
     np.cumsum(lens[:-1], out=offs[1:])
     return offs
+
+
+def _spans(data: torch.Tensor, starts: np.ndarray, lens: np.ndarray) -> torch.Tensor:
+    """The bytes ``data[starts[i]: starts[i] + lens[i]]`` end to end, on
+    ``data``'s device, in one gather."""
+    total = int(lens.sum())
+    base = torch.from_numpy(starts - _offsets(lens)).to(data.device)
+    pos = (torch.repeat_interleave(base, torch.from_numpy(lens).to(data.device),
+                                   output_size=total)
+           + torch.arange(total, device=data.device))
+    return data[pos]
 
 
 def _dyadic(lengths: np.ndarray, minimum: int = 8) -> np.ndarray:
@@ -162,6 +187,14 @@ class _HostCollection:
         return (torch.from_numpy(block).to(self._device),
                 torch.from_numpy(lens).to(self._device))
 
+    def part(self, idx, device: torch.device) -> "_HostCollection":
+        """The strings ``idx`` as a collection of their own on ``device``."""
+        col = _HostCollection.__new__(_HostCollection)
+        col._arrs = [self._arrs[i] for i in idx]
+        col.lens = self.lens[idx]
+        col._device = device
+        return col
+
     def chars(self, idx):
         """The int32 chars of strings ``idx``, end to end in one device
         tensor, and where each starts in it."""
@@ -208,19 +241,38 @@ class _DeviceCollection:
                     s = bytes(s)  # bytearray/memoryview views
                 conv.append(s)
             tape = Tape.from_strings(conv)
-        self._dt = device_tape(tape, device)
-        self._packsrc = (self._dt if b2c is None
-                         else _class_mapped_tape(self._dt, b2c))
-        self._utf8 = utf8
-        self._byte_lens = tape.lengths
-        self.lens = self._byte_lens
+        dt = device_tape(tape, device)
+        lens = None
         if utf8:
-            self.lens = np.zeros(len(tape), dtype=np.int64)
-            for bucket, idx in _group_dyadic(self._byte_lens).items():
-                counts, violations = rune_count_validity(self._dt, idx, bucket)
+            lens = np.zeros(len(tape), dtype=np.int64)
+            for bucket, idx in _group_dyadic(dt.lengths).items():
+                counts, violations = rune_count_validity(dt, idx, bucket)
                 if violations.any():
                     raise _HostFallback
-                self.lens[idx] = counts
+                lens[idx] = counts
+        self._setup(dt, b2c, utf8, lens)
+
+    def _setup(self, dt: DeviceTape, b2c, utf8: bool, lens) -> None:
+        """Holds ``dt`` (class-mapped on its device for a class-cost
+        engine); ``lens`` are the rune counts of a ``utf8`` collection."""
+        self._dt = dt
+        self._b2c = b2c
+        self._packsrc = dt if b2c is None else _class_mapped_tape(dt, b2c)
+        self._utf8 = utf8
+        self._byte_lens = dt.lengths
+        self.lens = lens if utf8 else self._byte_lens
+
+    def part(self, idx, device: torch.device) -> "_DeviceCollection":
+        """The strings ``idx`` as a collection of their own on ``device``:
+        their bytes gathered here into a blob of their own, copied there
+        and class-mapped there; their rune counts this collection's."""
+        lens = self._byte_lens[idx]
+        blob = torch.cat([_spans(self._dt.data, self._dt.starts[idx], lens),
+                          self._dt.data.new_zeros(1)]).to(device)
+        col = _DeviceCollection.__new__(_DeviceCollection)
+        col._setup(DeviceTape(data=blob, starts=_offsets(lens), lengths=lens), self._b2c,
+                   self._utf8, self.lens[idx])
+        return col
 
     def __len__(self) -> int:
         return len(self.lens)
@@ -248,13 +300,7 @@ class _DeviceCollection:
         offs = _offsets(lens)
         if self._utf8:
             return self._runes(idx, lens, offs), offs
-        data = self._packsrc.data
-        total = int(lens.sum())
-        base = torch.from_numpy(self._dt.starts[idx] - offs).to(data.device)
-        pos = (torch.repeat_interleave(base, torch.from_numpy(lens).to(data.device),
-                                       output_size=total)
-               + torch.arange(total, device=data.device))
-        return data[pos].to(torch.int32), offs
+        return _spans(self._packsrc.data, self._dt.starts[idx], lens).to(torch.int32), offs
 
     def _runes(self, idx, lens, offs) -> torch.Tensor:
         """The runes of strings ``idx`` end to end, decoded a byte-length
@@ -299,15 +345,23 @@ class _CrossProductEngine:
         except _HostFallback:
             return _HostCollection(items, device, self._b2c, self._utf8)
 
-    def _score_long_pairs(self, qc, cc, q_long, c_long, result) -> None:
+    def _score_long_pairs(self, qc, cc, q_long, c_long, result, scope) -> None:
         """Every pair touching a string over ``_LONG_THRESHOLD`` chars, in
-        one batch, scattered into ``result`` (the JAX ``_score_long_pairs``,
-        which runs them one launch per pair): unit-cost pairs through the
-        band tier, the rest through the flat wavefront kernel. Class-cost
-        engines pass the 32x32 table over the collections' class-mapped
-        chars."""
+        one batch on the scope's first device, scattered into ``result``
+        (the JAX ``_score_long_pairs``, which runs them one launch per
+        pair): unit-cost pairs through the band tier, the rest through the
+        flat wavefront kernel. Class-cost engines pass the 32x32 table over
+        the collections' class-mapped chars. In a scope over several
+        devices a pair over ``MAX_FLAT_CELLS`` raises
+        ``NotImplementedError``, where the JAX package runs its ring."""
         cfg = self._cfg
         qi, cj = np.nonzero(q_long[:, None] | c_long[None, :])
+        if scope.device_count > 1:
+            cells = np.maximum(qc.lens[qi] + 1, cc.lens[cj])
+            if int(cells.max()) > _wavefront.MAX_FLAT_CELLS:
+                raise NotImplementedError(
+                    f"a pair of {int(cells.max())} diagonal cells is over one device's "
+                    f"wavefront (MAX_FLAT_CELLS = {_wavefront.MAX_FLAT_CELLS}); {_RING}")
         q_at = np.zeros(len(qc), np.int64)
         c_at = q_at if cc is qc else np.zeros(len(cc), np.int64)
         if cc is qc:
@@ -333,62 +387,107 @@ class _CrossProductEngine:
         return self._cfg
 
     def _collections(self, queries, candidates, device: DeviceScope | None):
-        dev = (device or default_device_scope()).device
-        qc = self._collection(queries, dev)
-        return dev, qc, qc if candidates is None else self._collection(candidates, dev)
+        scope = device or default_device_scope()
+        qc = self._collection(queries, scope.device)
+        return scope, qc, qc if candidates is None else self._collection(candidates, scope.device)
 
-    def _scores(self, qc, cc, dev: torch.device) -> torch.Tensor:
-        """Every pair's score as one ``(nq, nc)`` int32 tensor on ``dev``."""
+    def _cards(self, qc, cc, c_buckets, scope):
+        """Each device's query collection and candidate collection, and
+        where each candidate of ``cc`` lies in the latter. One device keeps
+        the collections as they are; over several, each device holds every
+        query and its own part of each candidate bucket (a contiguous cut
+        of it), copied there once a device."""
+        if scope.device_count == 1:
+            return [qc], [cc], [np.arange(len(cc))]
+        copies = {scope.device: qc}
+        for dev in scope.devices:
+            if dev not in copies:
+                copies[dev] = qc.part(np.arange(len(qc)), dev)
+        qcs = [copies[dev] for dev in scope.devices]
+        if cc is qc:
+            return qcs, qcs, [np.arange(len(cc))] * scope.device_count
+        ccs, where = [], []
+        for i, dev in enumerate(scope.devices):
+            mine = np.concatenate([parts[i] for _, _, parts in c_buckets])
+            at = np.zeros(len(cc), np.int64)
+            at[mine] = np.arange(len(mine))
+            ccs.append(cc.part(mine, dev))
+            where.append(at)
+        return qcs, ccs, where
+
+    def _scores(self, qc, cc, scope: DeviceScope) -> torch.Tensor:
+        """Every pair's score as one ``(nq, nc)`` int32 tensor on the scope's
+        first device."""
+        dev = scope.device
         nq, nc = len(qc), len(cc)
         result = torch.empty((nq, nc), dtype=torch.int32, device=dev)
         if nq == 0 or nc == 0:
             return result
         q_long, c_long = qc.lens > _LONG_THRESHOLD, cc.lens > _LONG_THRESHOLD
         if q_long.any() or c_long.any():
-            self._score_long_pairs(qc, cc, q_long, c_long, result)
+            self._score_long_pairs(qc, cc, q_long, c_long, result, scope)
         # The rest in dense blocks of short strings: a long string's dyadic
-        # bucket is above the threshold. Myers reads plain query chars
-        # padded with -1 (never a byte); the column DP reads the +1-shifted
-        # layout, row 0 and padding zero.
-        unit = self._is_unit_cost
-        table = (None if unit or not self._cfg.uses_classes else
-                 torch.from_numpy(self._cfg.costs.table_np()).to(dev))
-        q_blocks = [(torch.from_numpy(q_idx).to(dev)[:, None],
-                     qc.pack(q_idx, round_up(q_bucket, 32), fill=-1) if unit
-                     else qc.pack(q_idx, round_up(q_bucket + 1, 8), fill=0,
-                                  shift=True))
-                    for q_bucket, q_idx in _group_dyadic(qc.lens).items()
-                    if q_bucket <= _LONG_THRESHOLD]
+        # bucket is above the threshold. Each candidate bucket is cut into
+        # one contiguous part a device.
+        q_buckets = [(b, idx) for b, idx in _group_dyadic(qc.lens).items()
+                     if b <= _LONG_THRESHOLD]
+        c_buckets = []
+        for b, idx in _group_dyadic(cc.lens).items():
+            if b <= _LONG_THRESHOLD:
+                cuts = split_bounds(len(idx), scope.device_count)
+                c_buckets.append((b, idx, [idx[lo:hi] for lo, hi in zip(cuts[:-1], cuts[1:])]))
+        if not q_buckets or not c_buckets:
+            return result
+        qcs, ccs, where = self._cards(qc, cc, c_buckets, scope)
+        # Myers reads plain query chars padded with -1 (never a byte); the
+        # column DP reads the +1-shifted layout, row 0 and padding zero.
         # Myers over runes: each query block's rune tables once, for every
-        # candidate block (None on the CPU, whose plain version reads none)
+        # candidate block (None on the CPU, whose plain version reads none).
+        unit = self._is_unit_cost
         runes = unit and self._utf8
-        tables = [build_rune_tables(q_t, qlens.view(-1, 1)) if runes else None
-                  for _, (q_t, qlens) in q_blocks]
-        for c_bucket, c_idx in _group_dyadic(cc.lens).items():
-            if c_bucket > _LONG_THRESHOLD or not q_blocks:
+        classes = not unit and self._cfg.uses_classes
+        tables, q_blocks = {}, {}  # each device's cost table and query blocks, made there once
+        for d, col in zip(scope.devices, qcs):
+            if d in q_blocks:
                 continue
-            block_j, lens_j = cc.pack(c_idx, c_bucket, fill=0)
+            tables[d] = torch.from_numpy(self._cfg.costs.table_np()).to(d) if classes else None
+            q_blocks[d] = []
+            for q_bucket, q_idx in q_buckets:
+                q_t, qlens = (col.pack(q_idx, round_up(q_bucket, 32), fill=-1) if unit
+                              else col.pack(q_idx, round_up(q_bucket + 1, 8), fill=0,
+                                            shift=True))
+                qlens = qlens.view(-1, 1)
+                q_blocks[d].append((q_t, qlens, build_rune_tables(q_t, qlens) if runes else None))
+        q_rows = [torch.from_numpy(q_idx).to(dev)[:, None] for _, q_idx in q_buckets]
+        for c_bucket, c_idx, parts in c_buckets:
+            packed = [col.pack(at[part], c_bucket, fill=0) if len(part) else (None, None)
+                      for col, at, part in zip(ccs, where, parts)]
+            cands = ([c for c, _ in packed], [None if n is None else n.view(1, -1)
+                                              for _, n in packed])
             c_rows = torch.from_numpy(c_idx).to(dev)[None, :]
-            for (q_rows, (q_t, qlens)), q_tables in zip(q_blocks, tables):
-                args = (q_t, qlens.view(-1, 1), block_j, lens_j.view(1, -1))
+            for j, rows in enumerate(q_rows):
+                blocks = [q_blocks[d][j] for d in scope.devices]
+                args = ([b[0] for b in blocks], [b[1] for b in blocks], *cands)
                 if not unit:
-                    result[q_rows, c_rows] = similarity(*args, self._cfg, table)
+                    result[rows, c_rows] = sharded_similarity(
+                        *args, self._cfg, scope, [tables[d] for d in scope.devices])
                 elif runes:
-                    result[q_rows, c_rows] = myers(*args, alphabet=None, rune_tables=q_tables)
+                    result[rows, c_rows] = sharded_myers(
+                        *args, scope, alphabet=None, rune_tables=[b[2] for b in blocks])
                 else:
-                    result[q_rows, c_rows] = myers(*args)
+                    result[rows, c_rows] = sharded_myers(*args, scope)
         return result
 
     def _device_scores(self, queries, candidates=None,
                        device: DeviceScope | None = None) -> torch.Tensor:
         """The engine call without the host pull: the int32 scores on the
-        scope's device, before the cast to ``result_dtype``."""
-        dev, qc, cc = self._collections(queries, candidates, device)
-        return self._scores(qc, cc, dev)
+        scope's first device, before the cast to ``result_dtype``."""
+        scope, qc, cc = self._collections(queries, candidates, device)
+        return self._scores(qc, cc, scope)
 
     def __call__(self, queries, candidates=None, device: DeviceScope | None = None,
                  out: np.ndarray | None = None) -> np.ndarray:
-        dev, qc, cc = self._collections(queries, candidates, device)
+        scope, qc, cc = self._collections(queries, candidates, device)
         nq, nc = len(qc), len(cc)
         if out is None:
             out = np.zeros((nq, nc), dtype=self.result_dtype)
@@ -396,7 +495,7 @@ class _CrossProductEngine:
             raise ValueError(f"out must have shape {(nq, nc)}, got {out.shape}")
         if nq == 0 or nc == 0:
             return out
-        result = self._scores(qc, cc, dev)
+        result = self._scores(qc, cc, scope)
         # numpy's assignment casts as .astype(result_dtype) does, with one
         # copy: a negative score wraps in uint64 as in the JAX package.
         out[...] = result.cpu().numpy()

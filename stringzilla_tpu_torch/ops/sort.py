@@ -35,8 +35,8 @@ import torch
 
 from ..utils import platform
 
-__all__ = ["argsort_strings", "argsort_tape", "argsort_bounds", "pack_pgram_keys",
-           "pgram_keys_bounds"]
+__all__ = ["argsort_strings", "argsort_tape", "argsort_bounds", "argsort_rows",
+           "pack_pgram_keys", "pgram_keys_bounds"]
 
 _DEVICE_MIN_ITEMS = 1 << 14  # below this, the host lexsort wins on latency
 _ROWS_PER_PASS = 1 << 20  # rows exported at once, to bound the dense block
@@ -83,17 +83,22 @@ def pack_pgram_keys(items: list[bytes], reverse: bool = False,
                              uncased=uncased, reverse=reverse)
 
 
-def _device_argsort(keys: np.ndarray, device: torch.device) -> np.ndarray:
-    """Stable lexicographic argsort of the rows of ``keys`` on ``device``."""
-    k = torch.from_numpy(keys.astype(np.int64)).to(device)
-    order = torch.arange(k.shape[0], device=device)
+def argsort_rows(k: torch.Tensor) -> torch.Tensor:
+    """Stable lexicographic argsort of the rows of ``k``, an int64 ``(n, w)``
+    tensor of u32 values, on its device: int64 positions, no pull."""
+    order = torch.arange(k.shape[0], device=k.device)
     width = k.shape[1]
     for c in reversed(range(0, width, 2)):  # least significant pass first
         col = k[order, c]
         # two u32 columns as one int64 in unsigned order: (hi - 2^31) * 2^32 + lo
         key = (col - (1 << 31)) * (1 << 32) + k[order, c + 1] if c + 1 < width else col
         order = order[torch.sort(key, stable=True).indices]
-    return order.cpu().numpy()
+    return order
+
+
+def _device_argsort(keys: np.ndarray, device: torch.device) -> np.ndarray:
+    """Stable lexicographic argsort of the rows of ``keys`` on ``device``."""
+    return argsort_rows(torch.from_numpy(keys.astype(np.int64)).to(device)).cpu().numpy()
 
 
 def _argsort_keys(keys: np.ndarray, top_count: int | None, prefer_device: bool = False,

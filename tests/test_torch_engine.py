@@ -131,13 +131,23 @@ def test_default_scope_needs_a_card(monkeypatch):
 
 
 def test_multi_device_scope_is_not_ported(monkeypatch):
+    """A scope spans every card, or the first ``cpu_cores``; what is not
+    ported over several devices is the ring, which takes the pairs over
+    ``MAX_FLAT_CELLS`` there (cut to 128 here), and raises."""
+    from stringzilla_tpu_torch.models import similarities as tsim
+    from stringzilla_tpu_torch.ops import wavefront as twf
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        device_scope.DeviceScope()
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        device_scope.DeviceScope(cpu_cores=2)
+    assert device_scope.DeviceScope().device_count == 4
+    assert device_scope.DeviceScope(cpu_cores=2).devices == (torch.device("cuda", 0),
+                                                             torch.device("cuda", 1))
     assert device_scope.DeviceScope(gpu_device=3).device == torch.device("cuda", 3)
+    monkeypatch.setattr(tsim, "_LONG_THRESHOLD", 64)
+    monkeypatch.setattr(twf, "MAX_FLAT_CELLS", 128)
+    with pytest.raises(NotImplementedError, match="parallel/ring.py"):
+        tsz.LevenshteinDistances()([b"a" * 200], [b"b" * 150],
+                                   device=device_scope.DeviceScope(devices=["cpu"] * 2))
 
 
 def test_one_card_scope_counts_one_device():

@@ -181,7 +181,7 @@ def test_band_keys_match_jax(bands):
         tfp.band_keys(h_host, bands=7)
 
 
-def test_engine_out_tape_device_out_and_errors(monkeypatch):
+def test_engine_out_tape_device_out_and_errors():
     docs = _docs(_rng(), [0, 5, 50, 150])
     engine = tsz.Fingerprints(40, (2, 5), seed=4)
     h, c = engine(docs, device=CPU)
@@ -204,10 +204,10 @@ def test_engine_out_tape_device_out_and_errors(monkeypatch):
         tsz.Fingerprints(8, (3, 0))
     with pytest.raises(TypeError):
         engine([b"ab", 3], device=CPU)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        engine(docs, device=tsz.DeviceScope())
+    # a scope over several devices splits the documents, with the same bits
+    split = engine(docs, device=tsz.DeviceScope(devices=["cpu"] * 3))
+    np.testing.assert_array_equal(split[0], h)
+    np.testing.assert_array_equal(split[1], c)
 
 
 @pytest.mark.parametrize("window", [1, 4, 31])

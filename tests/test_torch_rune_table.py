@@ -27,6 +27,7 @@ from stringzilla_tpu_torch.ops.myers import (  # noqa: E402
     _rune_eq, _rune_peq, build_rune_tables, myers_reference, rune_probe, rune_table,
     rune_table_bits, words_of)
 from stringzilla_tpu_torch.ops.tape import dyadic_bucket  # noqa: E402
+from stringzilla_tpu_torch.parallel import cross as cross_mod  # noqa: E402
 
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 EXTREMES = [-1, 0, INT32_MIN, INT32_MAX, 0x10FFFF]
@@ -284,7 +285,7 @@ def test_engine_builds_each_query_blocks_tables_once(monkeypatch):
         return myers_reference(q_t, qlens, cands_t, clens, alphabet)
 
     monkeypatch.setattr(sim_mod, "build_rune_tables", build)
-    monkeypatch.setattr(sim_mod, "myers", spy)
+    monkeypatch.setattr(cross_mod, "myers", spy)  # the engine's blocks reach myers there
     rng = np.random.default_rng(12)
     pool = [chr(c) for c in np.concatenate([[0x61, 0x62, 0x436], CJK + np.arange(200)])]
     text = lambda n: "".join(pool[i] for i in rng.integers(0, len(pool), n))
