@@ -334,6 +334,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one. Last, ``byte_lut`` through its wrapper beside the library's
    ``lut[x.long()]`` at 1 GiB and 256 MiB, equal. Every figure is printed
    beside the card's name and power limit.
+6. The ring (``parallel/ring.py``, ``csrc/ring.cu``). 6a, with the
+   kernel checks: ``ring_tile`` against ``ring_tile_reference`` on the
+   same card tensors in all 16 configurations on ``RING_TILES`` (rows at
+   the 128-row strip's edges, one row or column, columns under and over a
+   chunk, random frontiers, class ids >= 32); whole rings over 2-4
+   entries of the card on ``RING_WHOLE`` (m under the entries, n not a
+   multiple of the block), the kernel's loop against the plain version's
+   and a numpy Gotoh, and the JAX ring's two departures from Gotoh (affine
+   min with open < extend, local min) kernel against plain version. Exact
+   equality. Then the main path: a pair of ``RING_CHARS`` bases of DNA
+   and a copy with ``MIM_RATE`` edits through ``NeedlemanWunschScores``
+   (phase 4c's long-reads costs) and ``LevenshteinDistances`` over
+   ``DeviceScope(devices=["cuda:0"] * 4)``, past ``MAX_FLAT_CELLS``, so
+   each pair goes to the ring: ``ring_tile`` must launch and the one-card
+   wavefront must not; each score equal to the flat kernel on one card
+   (``MAX_FLAT_CELLS`` raised for that check alone). Prints the engine
+   call's time, the ring over 1, 2 and 4 entries of the card (CUDA events
+   around each run: the cost of splitting), ``ring_tile``'s launches and
+   their summed times, GCUPS and the bound. Last, one tile of the main
+   path (entry 0's rows across block 0 of the NW pair's 4-entry ring)
+   through ``ring_tile`` and ``ring_tile_reference`` on the same card
+   tensors: its four outputs exactly equal, and equal to the row the ring
+   handed on; the kernel's time on that tile beside the plain version's.
 
 Phases 4-4g also profile one engine call of each workload with
 ``torch.profiler`` and print the device's idle share of it; a trace whose
@@ -499,6 +522,18 @@ STAGE_PROBE_SMS = (66, 33)
 MIM_CHARS = 180_000
 MIM_SHORT = 150_000
 MIM_RATE = 0.005
+# Phase 6: the ring over RING_WAYS entries of one card (the engines' scope
+# lists it RING_WAYS[-1] times), on DNA of RING_CHARS bases against a copy
+# with MIM_RATE edits: a whole small bacterial genome against another
+# assembly, past MAX_FLAT_CELLS. Phase 6a's tiles (rows, columns) at the
+# strip edges (128 rows), under and over a chunk (16 steps), one row or
+# column; its whole rings (m, n, entries, column block or None) with m
+# under the entries, n not a multiple of the block, rows a strip and one.
+RING_CHARS = 600_000
+RING_WAYS = (1, 2, 4)
+RING_TILES = [(1, 1), (5, 17), (127, 40), (128, 128), (129, 300), (300, 15), (513, 1000),
+              (1000, 33)]
+RING_WHOLE = [(3, 200, 4, None), (700, 513, 4, 300), (257, 1000, 3, 128), (129, 77, 2, 16)]
 
 # The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
 # multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused
@@ -4516,8 +4551,296 @@ def _split_main_path(dev, sync, report):
     torch.cuda.empty_cache()
 
 
+# -- phase 6: the ring ---------------------------------------------------------------
+
+def _ring_config(k: int, dev):
+    """Configuration ``k`` (max * 8 + local * 4 + affine * 2 + classes) as
+    ``ring_wavefront_score``'s keywords, reopening never paying (so the
+    ring is Gotoh's), costs of both signs by objective; the class table
+    as numpy (the engines' way) and as a tensor on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 60 + k)
+    is_max, local, affine, classes = k & 8, k & 4, k & 2, k & 1
+    kw = dict(objective="max" if is_max else "min", locality="local" if local else "global")
+    if affine:
+        kw.update(gap=-5, extend=-2) if is_max else kw.update(gap=4, extend=1)
+    else:
+        kw["gap"] = -2 if is_max else 2
+    table = None
+    if classes:
+        table = rng.integers(-3, 4, (32, 32)).astype(np.int32)
+        np.fill_diagonal(table, 3)
+        if not is_max:
+            table = np.abs(table) * (1 - np.eye(32, dtype=np.int32))
+        kw["table"] = table
+    else:
+        kw.update(match=2, mismatch=-1) if is_max else kw.update(match=0, mismatch=1)
+    return kw, (None if table is None else torch.from_numpy(table).to(dev))
+
+
+def _ring_gotoh(a, b, kw) -> int:
+    """``_gotoh`` on a ring configuration (class ids clamped to [0, 31])."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    if kw.get("table") is not None:
+        t = kw["table"]
+        sub = lambda i: t[min(max(a[i - 1], 0), 31), np.clip(b, 0, 31)].astype(np.int64)
+    else:
+        sub = lambda i: np.where(b == a[i - 1], kw["match"], kw["mismatch"]).astype(np.int64)
+    return _gotoh(a, b, sub, kw["gap"], kw.get("extend"), kw["objective"] == "max",
+                  kw["locality"] == "local")
+
+
+@contextlib.contextmanager
+def _ring_tile_as(fn):
+    """``parallel/ring.py``'s loop with every tile through ``fn``."""
+    from stringzilla_tpu_torch.parallel import ring as ring_mod
+
+    keep = ring_mod.ring_tile
+    ring_mod.ring_tile = fn
+    try:
+        yield
+    finally:
+        ring_mod.ring_tile = keep
+
+
+def _check_ring_kernel(dev, sync, max_err):
+    """Phase 6a: ``ring_tile`` against ``ring_tile_reference`` on the same
+    card tensors in all 16 configurations, on ``RING_TILES`` with random
+    frontiers; then whole rings over ``RING_WHOLE`` on ``[dev] * entries``,
+    the kernel's loop against the plain version's loop on the card and
+    ``_gotoh``; and the JAX ring's two departures from Gotoh (affine min
+    with open < extend, local min), kernel against plain version."""
+    import torch
+    from stringzilla_tpu_torch import DeviceScope
+    from stringzilla_tpu_torch.parallel import ring as ring_mod
+    from stringzilla_tpu_torch.parallel.ring import (TileCosts, ring_tile,
+                                                     ring_tile_reference)
+
+    rng = np.random.default_rng(SEED + 61)
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+    err = tiles = 0
+    for k in range(16):
+        kw, table = _ring_config(k, dev)
+        costs = TileCosts(kw["objective"], kw["locality"], kw["gap"], kw.get("extend"),
+                          kw.get("match", 0), kw.get("mismatch", 1), table)
+        for rows, w in RING_TILES:
+            hi = 40 if k & 1 else 4  # class ids >= 32 cost as 31
+            inputs = [up(rng.integers(0, hi, rows)), up(rng.integers(0, hi, w)),
+                      up(rng.integers(-1000, 1000, w + 1)), up(rng.integers(-1000, 1000, w + 1)),
+                      up(np.zeros(w + 1)), up(np.zeros(w + 1)),
+                      up(rng.integers(-1000, 1000, rows)), up(rng.integers(-1000, 1000, rows)),
+                      up(rng.integers(0, 50, 1))]
+            got = [x.clone() for x in inputs]
+            want = [x.clone() for x in inputs]
+            ring_tile(*got, costs)
+            ring_tile_reference(*want, costs)
+            sync()
+            for g, w_ in zip(got[4:], want[4:]):
+                err = max(err, int((g.long() - w_.long()).abs().max()))
+            tiles += 1
+    _check(err == 0, f"ring_tile != ring_tile_reference on the tiles (max error {err})")
+    print(f"[check] ring_tile: {tiles} tiles ({len(RING_TILES)} shapes x 16 configurations, "
+          f"random frontiers) equal ring_tile_reference on the card")
+
+    whole = 0
+    quirks = [(dict(match=0, mismatch=4, gap=1, extend=3, objective="min", locality="global"),
+               (60, 90, 4, 32)),
+              (dict(match=-2, mismatch=1, gap=1, objective="min", locality="local"),
+               (200, 300, 3, None))]
+    cases = [(_ring_config(k, dev)[0], RING_WHOLE[k % len(RING_WHOLE)]) for k in range(16)]
+    for n_case, (kw, (m, n, entries, block)) in enumerate(cases + quirks):
+        hi = 40 if kw.get("table") is not None else 4
+        a, b = rng.integers(0, hi, m), rng.integers(0, hi, n)
+        scope = DeviceScope(devices=[dev] * entries)
+        runs = {}
+        for name, tile in (("kernel", ring_tile), ("plain", ring_tile_reference)):
+            _, r = ring_mod._ring_plan(up(a), up(b), scope, kw.get("match", 0),
+                                       kw.get("mismatch", 1), kw["gap"], kw["objective"],
+                                       kw["locality"], kw.get("table"), kw.get("extend"), block)
+            with _ring_tile_as(tile):
+                runs[name] = r.run().tolist()
+        got, want = runs["kernel"], runs["plain"]
+        _check(got == want, f"ring {m} x {n} over {entries} {kw}: kernel {got} != plain {want}")
+        _check(not any(got[1:]), f"ring {m} x {n}: a wait stalled {got[1:]}")
+        exact = _ring_gotoh(a, b, kw)
+        if n_case < len(cases):
+            _check(got[0] == exact, f"ring {m} x {n} over {entries} {kw}: {got[0]} != {exact}")
+        else:
+            print(f"[check] ring departure from Gotoh {kw}: {got[0]} on kernel and plain "
+                  f"version (Gotoh {exact})")
+        whole += 1
+    print(f"[check] ring: {whole} whole rings (16 configurations and 2 departures) over 2-4 "
+          f"entries of {dev}, the kernel's equal to the plain version's and to Gotoh")
+    max_err["ring_tile"] = err
+
+
+def _ring_pair():
+    """RING_CHARS bases of DNA from the seed and a copy with MIM_RATE
+    substitutions, insertions and deletions, both cut to RING_CHARS."""
+    rng = np.random.default_rng(SEED + 9)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    src = rng.choice(acgt, RING_CHARS + 1000)
+    copy = _mutate(rng, src, acgt, MIM_RATE)
+    return src[:RING_CHARS], copy[:RING_CHARS]
+
+
+def _ring_main_path(dev, sync, report):
+    """Phase 6: one RING_CHARS pair through ``NeedlemanWunschScores(b2c,
+    dna, open=-7, extend=-2)`` (phase 4c's long-reads costs) and
+    ``LevenshteinDistances()`` over ``DeviceScope(devices=[dev] *
+    RING_WAYS[-1])``: past MAX_FLAT_CELLS, each pair goes to the ring.
+    Each score against the flat kernel on one card (MAX_FLAT_CELLS raised
+    for that check alone); then the ring over each of RING_WAYS entries of
+    the card, timed; ``ring_tile``'s launches summed; then one tile of the
+    NW ring's main path, the kernel against its plain version."""
+    import torch
+    from stringzilla_tpu_torch import DeviceScope, LevenshteinDistances, NeedlemanWunschScores
+    from stringzilla_tpu_torch.ops import wavefront as wf_mod
+    from stringzilla_tpu_torch.ops.wavefront import config_costs, wavefront_batch
+    from stringzilla_tpu_torch.parallel import ring as ring_mod
+    from stringzilla_tpu_torch.parallel.ring import (ring_block_cols, ring_tile,
+                                                     ring_tile_reference)
+
+    t0 = time.perf_counter()
+    a, b = _ring_pair()
+    m, n = len(a), len(b)
+    b2c = np.zeros(256, np.uint8)
+    b2c[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    dna = np.full((32, 32), -3, np.int32)
+    np.fill_diagonal(dna, 2)
+    engines = [("NW affine", NeedlemanWunschScores(b2c, dna, open=-7, extend=-2)),
+               ("Levenshtein", LevenshteinDistances())]
+    scope = DeviceScope(devices=[dev] * RING_WAYS[-1])
+    qs, cs = [a.tobytes()], [b.tobytes()]
+    print(f"[setup] phase 6 pair: {m} x {n} DNA, {MIM_RATE} edits, in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    call_ms = []
+
+    def main_path():
+        out = []
+        for _, engine in engines:
+            t = time.perf_counter()
+            out.append(engine(qs, cs, device=scope))
+            call_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    launches = {}
+    results = _launched("ring", (ring_mod.KERNEL_LAUNCHES, wf_mod.KERNEL_LAUNCHES), ["ring_tile"],
+                        main_path, launches)
+    _check(launches["wavefront_flat"] == launches["wavefront_band"] == 0,
+           "the ring's pairs reached the one-card wavefront")
+    dna_t = torch.from_numpy(dna).to(dev)
+    main = main_cfg = None  # the first engine's ring over RING_WAYS[-1] entries
+    for (name, engine), res, ms in zip(engines, results, call_ms):
+        cfg = engine.config
+        ids = (lambda s: b2c[s]) if cfg.uses_classes else (lambda s: s)
+        chars = torch.from_numpy(np.concatenate([ids(a), ids(b)]).astype(np.int32)).to(dev)
+        kw = config_costs(cfg, dna_t if cfg.uses_classes else None)
+        cap = wf_mod.MAX_FLAT_CELLS
+        wf_mod.MAX_FLAT_CELLS = max(m + 1, n)  # this check alone
+        try:
+            flat = int(wavefront_batch(chars, [0], [m], [m], [n], **kw)[0])
+        finally:
+            wf_mod.MAX_FLAT_CELLS = cap
+        _check(res.shape == (1, 1) and int(res[0, 0]) == flat,
+               f"ring {name}: {res} != the one-card flat kernel's {flat}")
+        print(f"[engine] {name} {m} x {n} over {RING_WAYS[-1]} x {dev}: {int(res[0, 0])}, equal "
+              f"to the one-card flat kernel; engine call {ms:.3f} ms (host clock: collections, "
+              f"ring, pull; {CARD})")
+        a_t, b_t = chars[:m], chars[m:]
+        ring_kw = dict(kw)
+        if cfg.uses_classes:
+            ring_kw["table"] = dna
+        ways = {}
+        for k in RING_WAYS:
+            sc = DeviceScope(devices=[dev] * k)
+            _, r = ring_mod._ring_plan(a_t, b_t, sc, ring_kw.get("match", 0),
+                                       ring_kw.get("mismatch", 1), ring_kw["gap"],
+                                       ring_kw["objective"], ring_kw["locality"],
+                                       ring_kw.get("table"), ring_kw.get("extend"), None)
+            t_ms = _time_ms(r.run, 1, sync, batches=3)
+            out = r.run().tolist()
+            _check(out[0] == flat and not any(out[1:]),
+                   f"ring {name} over {k} x {dev}: {out} != {flat}")
+            ways[k] = (t_ms, r)
+        t_ms, r = ways[RING_WAYS[-1]]
+        tile_events = []
+
+        def timed_tile(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ring_tile(*args, **kwargs)
+            end.record()
+            tile_events.append((start, end))
+
+        _reset(ring_mod.KERNEL_LAUNCHES)
+        with _ring_tile_as(timed_tile):
+            r.run()
+        sync()
+        tile_sum = sum(s.elapsed_time(e) for s, e in tile_events)
+        tile_launches = ring_mod.KERNEL_LAUNCHES["ring_tile"]
+        bound_ms, bound_by = _bound(_dp_ops_per_cell(cfg) * m * n, 4.0 * (m + n))
+        block = ring_block_cols(m, n, RING_WAYS[-1])
+        print(f"[perf] ring {name} {m} x {n}: over {RING_WAYS[-1]} entries of {dev} "
+              f"{t_ms:.3f} ms [{t_ms.lo:.3f}-{t_ms.hi:.3f}] by events around the run "
+              f"({m * n / t_ms / 1e6:.1f} GCUPS), {100 * bound_ms / t_ms:.1f}% of the bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {_dp_ops_per_cell(cfg):.0f} slots a cell); "
+              f"{tile_launches} ring_tile launches of {block}-column blocks summing "
+              f"{tile_sum:.3f} ms from each launch's start to its end on its stream; "
+              + "; ".join(f"{k} entries {ways[k][0]:.3f} ms "
+                          f"({ways[k][0] / ways[1][0]:.2f}x one)" for k in RING_WAYS)
+              + f" ({CARD})")
+        if main is None:
+            main, main_cfg = r, cfg
+        del ways, r
+
+    # One tile of the main path at its own shape: entry 0's rows across
+    # block 0 of the NW pair's ring (the inputs it was given there: the
+    # border row above and column before), through the kernel and through
+    # its plain version on the same card tensors.
+    e = main.entries[0]
+    _, w = main.blocks[0]
+    t_rows = e.a.numel()
+    zeros = lambda k: torch.zeros(k, dtype=torch.int32, device=dev)
+    inputs = [e.a, main.b[e.device][:w], e.top[0, :w + 1], e.top[1, :w + 1], zeros(w + 1),
+              zeros(w + 1), e.left0[0], e.left0[1], zeros(1)]
+    fresh = lambda: [x.clone() for x in inputs]
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
+    work = fresh()
+    # each run rewrites work's last column in place: as many cells again
+    tile_ms = _time_ms(lambda: ring_tile(*work, e.costs, status=status, scratch=e.scratch), 1,
+                       sync, batches=3)
+    _check(int(status.item()) == 0, "ring_tile: a wait stalled on the timed tile")
+    kern, plain = fresh(), fresh()
+    ring_tile(*kern, e.costs)
+    sync()
+    t = time.perf_counter()
+    ring_tile_reference(*plain, e.costs)
+    sync()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    outs = ("bottom_d", "bottom_f", "left_d", "left_e")
+    for i, out in enumerate(outs, 4):
+        _check(torch.equal(kern[i], plain[i]),
+               f"ring_tile != ring_tile_reference in {out} on the {t_rows} x {w} main-path tile")
+    _check(torch.equal(kern[4][1:], e.bottom[0, 1: w + 1])
+           and torch.equal(kern[5][1:], e.bottom[1, 1: w + 1]),
+           "the main-path tile's bottom row != the one its ring handed on")
+    cells = t_rows * w
+    tile_bound, tile_by = _bound(_dp_ops_per_cell(main_cfg) * cells, 4.0 * 5 * (t_rows + w))
+    print(f"[perf] ring_tile on a main-path tile (entry 0, block 0 of the NW affine pair over "
+          f"{RING_WAYS[-1]} entries, {t_rows} x {w}): kernel {tile_ms:.4f} ms "
+          f"[{tile_ms.lo:.4f}-{tile_ms.hi:.4f}] ({cells / tile_ms / 1e6:.1f} GCUPS), "
+          f"{100 * tile_bound / tile_ms:.1f}% of its bound {tile_bound:.4f} ms ({tile_by}); "
+          f"plain version {plain_ms:.3f} ms on the card (host clock), its {', '.join(outs)} "
+          f"equal to the kernel's and its bottom row to the one the ring handed on ({CARD})")
+    report["ring_tile"] = dict(launches=launches["ring_tile"], ms=tile_ms, plain_ms=plain_ms,
+                               bound_ms=tile_bound, bound_by=tile_by, library_ms=None)
+
+
 def run(dev) -> list:
-    """Phases 3-5 on ``dev``; returns each kernel's report entry."""
+    """Phases 3-6 on ``dev``; returns each kernel's report entry."""
     import torch
 
     sync = torch.cuda.synchronize
@@ -4526,11 +4849,11 @@ def run(dev) -> list:
               ("3c", _check_wavefront_kernel), ("3c", _check_band_kernel),
               ("3d", _check_fingerprint_kernel), ("3d", _check_rune_myers_kernel),
               ("3e", _check_find_kernel), ("3e", _check_utf8_kernel),
-              ("3f", _check_hash_kernels), ("3g", _check_stage_kernel)]
+              ("3f", _check_hash_kernels), ("3g", _check_stage_kernel), ("6", _check_ring_kernel)]
     mains = [("4", _myers_main_path), ("4b", _dp_main_path), ("4c", _wavefront_main_path),
              ("4d", _fingerprint_main_path), ("4d", _utf8_main_path),
              ("4e", _buffer_main_path), ("4f", _hash_main_path), ("4g", _mim_main_path),
-             ("4h", _uncased_main_path), ("5", _split_main_path)]
+             ("4h", _uncased_main_path), ("5", _split_main_path), ("6", _ring_main_path)]
     for (phase, fn), out in [(p, max_err) for p in phases] + [(m, report) for m in mains]:
         t0 = time.perf_counter()
         fn(dev, sync, out)
@@ -4561,6 +4884,8 @@ def run(dev) -> list:
         "fill_random": ("stringzilla_tpu/ops/aes_pallas.py:117", "csrc/hash.cu"),
         "wavefront_stage": ("stringzilla_tpu/ops/wavefront_pallas.py:243",
                             "csrc/wavefront_stage.cu"),
+        # no Pallas kernel: the JAX ring's tile, a lax.scan over columns
+        "ring_tile": ("stringzilla_tpu/parallel/ring.py:74", "csrc/ring.cu"),
     }
     return [{"name": k, "route": "cuda",
              "source": f"stringzilla_tpu_torch/{src}", "replaces": tpu,
@@ -4602,10 +4927,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # -- phases 3-5: kernels against plain versions, then the main paths ---
+    # -- phases 3-6: kernels against plain versions, then the main paths ---
     t0 = time.perf_counter()
     kernels = run(torch.device("cuda", 0))
-    print(f"[run] phases 3-5 in {time.perf_counter() - t0:.3f} s")
+    print(f"[run] phases 3-6 in {time.perf_counter() - t0:.3f} s")
 
     # -- report ---------------------------------------------------------------
     print(card)

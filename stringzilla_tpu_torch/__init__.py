@@ -34,11 +34,12 @@ with ``g++`` on first use) and generated UCD tables; Arrow import and
 export of ``Strs`` and ``Tape``; ``reset_capabilities``. Every name of the
 JAX package's ``__all__`` is here. A ``DeviceScope`` spans every visible
 card (or a list of devices): the engines split their candidates and
-``Fingerprints`` its documents over it (``parallel/cross.py``), and
-``serve.py`` answers engine requests from other processes. Not ported: the
-ring tier that scores one long pair over several devices
-(``parallel/ring.py``), scopes over several hosts, and the native host
-tiers for packing, hashing, SHA-256 and sort keys.
+``Fingerprints`` its documents over it (``parallel/cross.py``), a pair past
+one device's wavefront runs on the ring tier with its rows cut over the
+scope's devices (``parallel/ring.py``, the ``ring_tile`` kernel), and
+``serve.py`` answers engine requests from other processes. Not ported:
+scopes over several hosts, and the native host tiers for packing,
+hashing, SHA-256 and sort keys.
 """
 
 from .models.device_scope import DeviceScope

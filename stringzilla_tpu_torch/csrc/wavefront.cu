@@ -85,46 +85,9 @@
 
 #include <cuda_runtime.h>
 
+#include "dp_cells.cuh"
+
 namespace {
-
-constexpr int kClasses = 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Costs {
-  int gap;       // linear: open_or_extend; affine: open
-  int extend;    // affine only
-  int match;     // uniform only
-  int mismatch;  // uniform only
-};
-
-template <bool kMax>
-__device__ __forceinline__ int opt(int a, int b) {
-  return kMax ? max(a, b) : min(a, b);
-}
-
-// opt(a + b, c) in one DPX instruction, then opt with 0 when local (for max
-// in the same instruction).
-template <bool kMax, bool kLocal>
-__device__ __forceinline__ int add_opt(int a, int b, int c) {
-  if (!kLocal) return kMax ? __viaddmax_s32(a, b, c) : __viaddmin_s32(a, b, c);
-  return kMax ? __viaddmax_s32_relu(a, b, c) : min(__viaddmin_s32(a, b, c), 0);
-}
-
-template <bool kLocal, bool kAffine>
-__device__ __forceinline__ int boundary(int k, const Costs& c) {
-  if (kLocal) return 0;
-  if (kAffine) return k > 0 ? c.gap + c.extend * (k - 1) : 0;
-  return c.gap * k;
-}
-
-template <bool kLocal, bool kAffine>
-__device__ __forceinline__ int gap_boundary(int k, const Costs& c) {
-  return boundary<kLocal, kAffine>(k, c) + c.gap + c.extend;
-}
-
-__device__ __forceinline__ int clamp_class(int c) {
-  return min(max(c, 0), kClasses - 1);
-}
 
 // ---------------------------------------------------------------------------
 // Band tier: the exact unit-cost Levenshtein distance of long pairs by
@@ -205,11 +168,8 @@ constexpr int kBandRing = 64;   // slots of a hand-off ring, then its consumed c
 constexpr int kBandMax = 2047;  // the widest half-width
 constexpr int kBandRecord = 5;  // per pair: a_off, m, b_off, n, first k
 constexpr int kBig = 1 << 28;   // the JAX kernel's identity
-constexpr int kNoChar = -1;     // a char of b past its ends: only masked cells compare it
 constexpr long long kWaitCycles = 1LL << 32;  // ~2 s at 1.98 GHz
-constexpr long long kQuietCycles = 1 << 15;  // ~16 us between a wait's looks at the flags
 constexpr long long kRowCycles = 8192;  // a rung barrier waits longer: this much a row more
-constexpr int kStalled = 3;
 constexpr unsigned long long kAbort = 1ULL << 32;  // a rung barrier stalled
 constexpr int kGroupBytes = 64;
 
@@ -239,21 +199,6 @@ struct BandLink {
   long long* slots;
   long long* consumed;
 };
-
-// Ring words are read and written relaxed at device scope through generic
-// addresses (a volatile access would be ordered at system scope), and a
-// step's slot is stored under a predicate rather than a branch.
-__device__ __forceinline__ long long ring_load(const long long* p) {
-  long long v;
-  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ void ring_store(long long* p, long long v, bool on = true) {
-  asm volatile(
-      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t@q st.relaxed.gpu.b64 [%0], %1;\n\t}"
-      ::"l"(p), "l"(v), "r"(static_cast<int>(on)));
-}
 
 // Band cells of rows 1..r: sum of min(n, i + k) - max(0, i - k) + 1.
 __device__ long long band_row_cells(long long r, long long n, long long k) {
@@ -597,7 +542,6 @@ constexpr int kFlatWarps = 4;    // warps a CTA
 constexpr int kFlatChunk = 16;   // steps a strip reads from the strip above at once
 constexpr int kFlatRecord = 6;   // per pair: a_off, m, b_off, n, its slots' offset, transposed
 constexpr int kFlatGroup = 6;    // per group: first pair, pairs, first claim, claims, CTAs, slots
-constexpr long long kFlatWaitCycles = 1LL << 34;  // ~8.7 s at 1.98 GHz
 
 struct FlatArgs {
   const int32_t* chars;
@@ -613,33 +557,6 @@ struct FlatArgs {
 
 constexpr int kFlatProfileBytes = kClasses * 32 * kFlatRows;  // a warp's: 32 classes x 32 R rows
 
-// One more round of a strip's bounded wait that began at `start`: sleeps a
-// little longer each round (up to 1 us), looks at the group's status once
-// every kQuietCycles, and marks it stalled past kFlatWaitCycles. False once
-// the wait should give up. The clock is the same in every lane.
-__device__ __forceinline__ bool flat_waiting(long long& start, long long& looked, unsigned& nap,
-                                             int* status) {
-  const long long now = clock64();
-  if (start < 0) {
-    start = looked = now;
-    return true;
-  }
-  __nanosleep(nap);
-  nap = min(2 * nap + 32, 1024u);
-  if (now - looked < kQuietCycles) return true;
-  looked = now;
-  int gone = 0;
-  if ((threadIdx.x & 31) == 0) {
-    if (now - start > kFlatWaitCycles) atomicExch(status, kStalled);
-    gone = *reinterpret_cast<volatile int*>(status) != 0;
-  }
-  return __shfl_sync(kFull, gone, 0) == 0;
-}
-
-__device__ __forceinline__ long long flat_slot(unsigned tag, int value) {
-  return (static_cast<long long>(tag) << 32) | static_cast<unsigned>(value);
-}
-
 // Strip s of pair `pair`: rows r0 = 32 R s + 1 .. min(m, r0 + 32 R - 1)
 // through every column. `prof` is the shared memory of the CTA, `warp_base`
 // the byte offset of this warp's profile in it. False when a wait stalled.
@@ -647,7 +564,6 @@ template <bool kMax, bool kLocal, bool kAffine, bool kClass>
 __device__ bool flat_strip(const FlatArgs& args, int pair, int s, unsigned char* prof,
                            int warp_base) {
   constexpr int R = kFlatRows, H = 32 * R, C = kFlatChunk;
-  static_assert(R % 4 == 0, "a lane's profile packs its rows four to a word");
   const Costs c = args.costs;
   const long long* rec = args.pairs + static_cast<long long>(pair) * kFlatRecord;
   const int32_t* a = args.chars + rec[0];
@@ -681,24 +597,8 @@ __device__ bool flat_strip(const FlatArgs& args, int pair, int s, unsigned char*
     if constexpr (!kClass) ac[q] = q < rq ? __ldg(a + i - 1) : kNoChar;
     bc[q] = b_value(-(base + q), lane);
   }
-  if constexpr (kClass) {  // lane l's profile: word (k R / 4 + g) * 32 + l, rows 4g..4g+3, class k
-    int cls[R];
-#pragma unroll
-    for (int q = 0; q < R; ++q) cls[q] = q < rq ? clamp_class(__ldg(a + r0 + base + q - 1)) : 0;
-    unsigned* words = reinterpret_cast<unsigned*>(prof + warp_base);
-    for (int k = 0; k < kClasses; ++k) {
-#pragma unroll
-      for (int g = 0; g < R / 4; ++g) {
-        unsigned w = 0;
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int at = transposed ? k * kClasses + cls[4 * g + x] : cls[4 * g + x] * kClasses + k;
-          w |= (static_cast<unsigned>(__ldg(args.table + at)) & 0xffu) << (8 * x);
-        }
-        words[(k * (R / 4) + g) * 32 + lane] = w;
-      }
-    }
-  }
+  if constexpr (kClass)
+    fill_profile<R>(prof, warp_base, a + r0 + base - 1, rq, args.table, transposed);
   int x2 = boundary<kLocal, kAffine>(r0 + base - 1, c);  // the first row's diagonal at column 1
   int best = 0;
 

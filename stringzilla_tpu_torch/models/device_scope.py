@@ -21,9 +21,10 @@ list of ``torch.device``s, as the JAX scope holds a mesh:
 and every entry point that runs on one device (``Str``, ``intersect``, the
 hash and SHA-256 functions) runs there. Over several devices the engines
 split their candidates and ``Fingerprints`` its documents
-(``parallel/cross.py``). There is no silent CPU fallback: without a card,
-a CUDA scope raises. Not ported: the ring tier over several cards
-(``parallel/ring.py``) and scopes over several hosts.
+(``parallel/cross.py``), and a pair past one device's wavefront is scored
+on the ring (``parallel/ring.py``), its rows cut over the devices. There
+is no silent CPU fallback: without a card, a CUDA scope raises. Not
+ported: scopes over several hosts.
 """
 
 from __future__ import annotations

@@ -43,11 +43,12 @@ tensor on the scope's first device, pulled once. Long pairs run on the
 first device, as in the JAX package.
 
 A long pair that reaches the flat kernel may have up to
-``MAX_FLAT_CELLS`` diagonal cells (``max(m + 1, n)``); beyond that it
-raises the ``ValueError`` of the JAX package's single-device path. In a
-scope over several devices, where the JAX package sends such a pair to its
-ring tier, it raises ``NotImplementedError``: the ring is not ported yet.
-None computes an approximate answer.
+``MAX_FLAT_CELLS`` diagonal cells (``max(m + 1, n)``); beyond that, on one
+device, it raises the ``ValueError`` of the JAX package's single-device
+path. In a scope over several devices such a pair is scored alone on the
+ring tier (``parallel/ring.py``), its rows cut over the scope's devices,
+in every configuration, as the JAX package does; the other long pairs keep
+the batch on the first device.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from ..ops.tape import Tape, round_up
 from ..ops.utf8_pack_device import decode_pack_device, rune_count_validity
 from ..ops.wavefront import config_costs, levenshtein_batch, wavefront_batch
 from ..parallel.cross import sharded_myers, sharded_similarity, split_bounds
+from ..parallel.ring import ring_wavefront_score
 from .device_scope import DeviceScope, default_device_scope
 
 __all__ = [
@@ -79,8 +81,6 @@ __all__ = [
 ]
 
 _LONG_THRESHOLD = 4096  # a pair with a longer string runs on the wavefront tier
-_RING = ("ring_wavefront_score, which scores such a pair over a scope's devices, "
-         "is not ported yet (ROADMAP.md, queue 1 item 7: parallel/ring.py)")
 
 
 def _reject_integer_like(s) -> None:
@@ -346,22 +346,20 @@ class _CrossProductEngine:
             return _HostCollection(items, device, self._b2c, self._utf8)
 
     def _score_long_pairs(self, qc, cc, q_long, c_long, result, scope) -> None:
-        """Every pair touching a string over ``_LONG_THRESHOLD`` chars, in
-        one batch on the scope's first device, scattered into ``result``
-        (the JAX ``_score_long_pairs``, which runs them one launch per
-        pair): unit-cost pairs through the band tier, the rest through the
-        flat wavefront kernel. Class-cost engines pass the 32x32 table over
-        the collections' class-mapped chars. In a scope over several
-        devices a pair over ``MAX_FLAT_CELLS`` raises
-        ``NotImplementedError``, where the JAX package runs its ring."""
+        """Every pair touching a string over ``_LONG_THRESHOLD`` chars,
+        scattered into ``result`` (the JAX ``_score_long_pairs``, which runs
+        them one launch per pair): in one batch on the scope's first
+        device, unit-cost pairs through the band tier and the rest through
+        the flat wavefront kernel. Class-cost engines pass the 32x32 table
+        over the collections' class-mapped chars. In a scope over several
+        devices a pair over ``MAX_FLAT_CELLS`` leaves the batch and is
+        scored alone over the scope by ``ring_wavefront_score``, in any
+        configuration, as the JAX engine sends it to its ring."""
         cfg = self._cfg
         qi, cj = np.nonzero(q_long[:, None] | c_long[None, :])
+        ring = np.zeros(len(qi), bool)
         if scope.device_count > 1:
-            cells = np.maximum(qc.lens[qi] + 1, cc.lens[cj])
-            if int(cells.max()) > _wavefront.MAX_FLAT_CELLS:
-                raise NotImplementedError(
-                    f"a pair of {int(cells.max())} diagonal cells is over one device's "
-                    f"wavefront (MAX_FLAT_CELLS = {_wavefront.MAX_FLAT_CELLS}); {_RING}")
+            ring = np.maximum(qc.lens[qi] + 1, cc.lens[cj]) > _wavefront.MAX_FLAT_CELLS
         q_at = np.zeros(len(qc), np.int64)
         c_at = q_at if cc is qc else np.zeros(len(cc), np.int64)
         if cc is qc:
@@ -373,13 +371,21 @@ class _CrossProductEngine:
             c_chars, c_at[c_used] = cc.chars(c_used)
             c_at += q_chars.numel()
             chars = torch.cat([q_chars, c_chars])
+        table = cfg.costs.table_np() if cfg.uses_classes else None
+        dev = result.device
+        for p in np.nonzero(ring)[0]:
+            i, j = int(qi[p]), int(cj[p])
+            q = chars[q_at[i]: q_at[i] + qc.lens[i]]
+            c = chars[c_at[j]: c_at[j] + cc.lens[j]]
+            result[i, j] = ring_wavefront_score(q, c, scope, **config_costs(cfg, table))
+        qi, cj = qi[~ring], cj[~ring]
+        if len(qi) == 0:
+            return
         pairs = (chars, q_at[qi], qc.lens[qi], c_at[cj], cc.lens[cj])
         if self._is_unit_cost:
             scores = levenshtein_batch(*pairs)
         else:
-            table = cfg.costs.table_np() if cfg.uses_classes else None
             scores = wavefront_batch(*pairs, **config_costs(cfg, table))
-        dev = result.device
         result[torch.from_numpy(qi).to(dev), torch.from_numpy(cj).to(dev)] = scores
 
     @property

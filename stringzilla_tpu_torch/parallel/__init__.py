@@ -1,5 +1,6 @@
-"""Work split over the devices of a ``DeviceScope`` (``cross.py``).
+"""Work split over the devices of a ``DeviceScope``: ``cross.py`` cuts a
+batch into one part a device; ``ring.py`` cuts ONE pair's DP matrix into
+bands of rows, one a device, in a systolic pipeline.
 
-Counterpart of ``stringzilla_tpu/parallel/``. Its ring tier
-(``ring.py``, one long pair over several devices) is not ported.
+Counterpart of ``stringzilla_tpu/parallel/``.
 """

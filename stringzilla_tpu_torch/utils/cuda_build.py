@@ -115,6 +115,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sz_wavefront_band.restype = i
     lib.sz_wavefront_band_occupancy.argtypes = [p]
     lib.sz_wavefront_band_occupancy.restype = i
+    lib.sz_ring_tile.argtypes = [i] * 5 + [p, i, p, i] + [p] * 9 + [p, ll, i, p, p]
+    lib.sz_ring_tile.restype = i
+    lib.sz_ring_geometry.argtypes = [p]
+    lib.sz_ring_geometry.restype = None
+    lib.sz_ring_scratch_bytes.argtypes = [i, i, i]
+    lib.sz_ring_scratch_bytes.restype = ll
     lib.sz_wavefront_stage.argtypes = [p, i, p, i, i, i, p, ll, p]
     lib.sz_wavefront_stage.restype = i
     lib.sz_wavefront_stage_occupancy.argtypes = [i, p]

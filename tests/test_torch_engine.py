@@ -131,9 +131,9 @@ def test_default_scope_needs_a_card(monkeypatch):
 
 
 def test_multi_device_scope_is_not_ported(monkeypatch):
-    """A scope spans every card, or the first ``cpu_cores``; what is not
-    ported over several devices is the ring, which takes the pairs over
-    ``MAX_FLAT_CELLS`` there (cut to 128 here), and raises."""
+    """A scope spans every card, or the first ``cpu_cores``; over several
+    devices the pairs over ``MAX_FLAT_CELLS`` (cut to 128 here) go to the
+    ring (``parallel/ring.py``), which scores them."""
     from stringzilla_tpu_torch.models import similarities as tsim
     from stringzilla_tpu_torch.ops import wavefront as twf
 
@@ -145,9 +145,9 @@ def test_multi_device_scope_is_not_ported(monkeypatch):
     assert device_scope.DeviceScope(gpu_device=3).device == torch.device("cuda", 3)
     monkeypatch.setattr(tsim, "_LONG_THRESHOLD", 64)
     monkeypatch.setattr(twf, "MAX_FLAT_CELLS", 128)
-    with pytest.raises(NotImplementedError, match="parallel/ring.py"):
-        tsz.LevenshteinDistances()([b"a" * 200], [b"b" * 150],
-                                   device=device_scope.DeviceScope(devices=["cpu"] * 2))
+    got = tsz.LevenshteinDistances()([b"a" * 200], [b"b" * 150],
+                                     device=device_scope.DeviceScope(devices=["cpu"] * 2))
+    assert got.tolist() == [[levenshtein(b"a" * 200, b"b" * 150)]] == [[200]]
 
 
 def test_one_card_scope_counts_one_device():
@@ -165,7 +165,8 @@ def test_port_imports_no_jax():
             "stringzilla_tpu_torch.ops.utf8_pack_device, "
             "stringzilla_tpu_torch.models.str_api, stringzilla_tpu_torch.ops.find, "
             "stringzilla_tpu_torch.ops.find_kernel, stringzilla_tpu_torch.ops.utf8_device, "
-            "stringzilla_tpu_torch.ops.utf8, stringzilla_tpu_torch.ops.hash; "
+            "stringzilla_tpu_torch.ops.utf8, stringzilla_tpu_torch.ops.hash, "
+            "stringzilla_tpu_torch.parallel.ring; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'stringzilla_tpu' for m in sys.modules), "
             "'stringzilla_tpu imported'")

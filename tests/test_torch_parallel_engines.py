@@ -5,8 +5,10 @@ CPU 1, 3 or 8 times, held against the port's one-device results, the JAX
 package's one-device engines (the Pallas interpreter) and
 ``tests/oracles.py``, on the same numpy-seeded inputs: unit and other
 costs, NW and SW with class tables, UTF-8 (valid and malformed), int-array
-items, the symmetric call, long pairs beside the split blocks, and the
-ring's ``NotImplementedError``. Tolerance: exact equality."""
+items, the symmetric call, long pairs beside the split blocks, and pairs
+over ``MAX_FLAT_CELLS`` scored on the ring tier (``parallel/ring.py``)
+over 2 and 3 entries, against the JAX engines on a mesh of as many
+devices. Tolerance: exact equality."""
 
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ import stringzilla_tpu_torch as tsz  # noqa: E402
 from stringzilla_tpu_torch.models import similarities as tsim  # noqa: E402
 from stringzilla_tpu_torch.ops import wavefront as twf  # noqa: E402
 
-from .oracles import levenshtein, score_affine  # noqa: E402
+from .oracles import levenshtein, score_affine, score_linear  # noqa: E402
 
 CPU = tsz.DeviceScope(device="cpu")
 SPLITS = [1, 3, 8]
@@ -138,21 +140,67 @@ def test_split_engine_long_pairs_on_the_first_device(monkeypatch, name):
                                     tsz.NeedlemanWunschScores(np.arange(256) % 4,
                                                               np.eye(32, dtype=np.int32))])
 def test_oversize_pair_in_a_split_scope_waits_for_the_ring(monkeypatch, engine):
-    """A pair over ``MAX_FLAT_CELLS`` (cut to 128 here) in a scope over
-    several devices is the ring's, which is not ported: it raises
-    ``NotImplementedError`` naming it. On one device the column-DP
-    engine keeps raising the JAX package's ``ValueError``."""
-    monkeypatch.setattr(tsim, "_LONG_THRESHOLD", 64)
-    monkeypatch.setattr(twf, "MAX_FLAT_CELLS", 128)
+    """A pair over ``MAX_FLAT_CELLS`` in a scope over several devices is
+    the ring's: scored alone by ``ring_wavefront_score`` with its rows over
+    the scope's 2 or 3 entries, equal to the JAX engine on a mesh of as
+    many devices and to the oracle, in the symmetric call too. In a call
+    with another long pair, that one stays in the batch on the first
+    device. On one device the
+    column-DP engine keeps raising the JAX package's ``ValueError``. Both
+    packages' thresholds are cut as ``tests/test_ring.py`` cuts them: 64
+    chars for a long pair, 128 diagonal cells for the flat tier."""
+    import jax
+    import stringzilla_tpu.models.similarities as jsim
+    from jax.sharding import Mesh
+    from stringzilla_tpu.ops import wavefront_pallas
+
+    for mod, name, value in ((tsim, "_LONG_THRESHOLD", 64), (jsim, "_LONG_THRESHOLD", 64),
+                             (twf, "MAX_FLAT_CELLS", 128),
+                             (wavefront_pallas, "MAX_FLAT_CELLS", 128)):
+        monkeypatch.setattr(mod, name, value)
+    rings = []
+    ring = tsim.ring_wavefront_score
+    monkeypatch.setattr(tsim, "ring_wavefront_score",
+                        lambda a, b, scope, **kw: rings.append((len(a), len(b)))
+                        or ring(a, b, scope, **kw))
+    nw = isinstance(engine, tsz.NeedlemanWunschScores)
+    if nw:
+        jax_engine = jsz.NeedlemanWunschScores(np.arange(256) % 4, np.eye(32, dtype=np.int32))
+        cfg = engine.config
+        sub = lambda x, y: int(cfg.costs.table_np()[x % 4, y % 4])
+        if cfg.is_affine:
+            oracle = lambda a, b: score_affine(a, b, sub, cfg.gaps.open, cfg.gaps.extend,
+                                               objective=cfg.objective)
+        else:
+            oracle = lambda a, b: score_linear(a, b, sub, cfg.gaps.open_or_extend,
+                                               objective=cfg.objective)
+    else:
+        jax_engine, oracle = jsz.LevenshteinDistances(), levenshtein
     rng = np.random.default_rng(1)
-    a, b = _strings(rng, [200, 251])
-    with pytest.raises(NotImplementedError, match="ring"):
-        engine([a], [b], device=_scope(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine([b"ab", a], device=_scope(3))
-    if isinstance(engine, tsz.NeedlemanWunschScores):
+    a, b, mid = _strings(rng, [200, 251, 90])
+    for k in (2, 3):
+        scope = jsz.DeviceScope(mesh=Mesh(np.asarray(jax.devices()[:k]), axis_names=("data",)))
+        got = engine([a], [b], device=_scope(k))
+        np.testing.assert_array_equal(got, np.asarray(jax_engine([a], [b], device=scope)))
+        assert got[0, 0] == oracle(a, b)
+    assert rings == [(200, 251)] * 2
+    rings.clear()
+    short = _strings(rng, [100])[0]
+    got = engine([a, mid], [short], device=_scope(2))
+    scope = jsz.DeviceScope(mesh=Mesh(np.asarray(jax.devices()[:2]), axis_names=("data",)))
+    np.testing.assert_array_equal(got, np.asarray(jax_engine([a, mid], [short], device=scope)))
+    assert rings == [(200, 100)]  # max(201, 100) > 128; (90, 100) stays in the batch
+    assert got[1, 0] == oracle(mid, short)
+    # the symmetric call: its ring pairs cut from the one collection
+    rings.clear()
+    got = engine([b"ab", a], device=_scope(3))
+    scope = jsz.DeviceScope(mesh=Mesh(np.asarray(jax.devices()[:3]), axis_names=("data",)))
+    np.testing.assert_array_equal(got, np.asarray(jax_engine([b"ab", a], device=scope)))
+    assert rings and all(max(m + 1, n) > 128 for m, n in rings)
+    assert got[1, 1] == oracle(a, a) and got[0, 1] == oracle(b"ab", a)
+    if nw:
         with pytest.raises(ValueError, match="too long"):
             engine([a], [b], device=CPU)
     # pairs within the cut still score on a split scope
-    short = _strings(rng, [70, 90])
-    np.testing.assert_array_equal(engine(short, device=_scope(2)), engine(short, device=CPU))
+    pairs = _strings(rng, [70, 90])
+    np.testing.assert_array_equal(engine(pairs, device=_scope(2)), engine(pairs, device=CPU))
