@@ -337,8 +337,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. The ring (``parallel/ring.py``, ``csrc/ring.cu``). 6a, with the
    kernel checks: ``ring_tile`` against ``ring_tile_reference`` on the
    same card tensors in all 16 configurations on ``RING_TILES`` (rows at
-   the 128-row strip's edges, one row or column, columns under and over a
-   chunk, random frontiers, class ids >= 32); whole rings over 2-4
+   the edges of the 128-row strip and of a CTA's claim of 4 strips, over
+   three claims, one row or column, columns under, at and over a chunk,
+   random frontiers, class ids >= 32); whole rings over 2-4
    entries of the card on ``RING_WHOLE`` (m under the entries, n not a
    multiple of the block), the kernel's loop against the plain version's
    and a numpy Gotoh, and the JAX ring's two departures from Gotoh (affine
@@ -526,14 +527,19 @@ MIM_RATE = 0.005
 # lists it RING_WAYS[-1] times), on DNA of RING_CHARS bases against a copy
 # with MIM_RATE edits: a whole small bacterial genome against another
 # assembly, past MAX_FLAT_CELLS. Phase 6a's tiles (rows, columns) at the
-# strip edges (128 rows), under and over a chunk (16 steps), one row or
-# column; its whole rings (m, n, entries, column block or None) with m
-# under the entries, n not a multiple of the block, rows a strip and one.
+# edges of the strip (128 rows) and of a CTA's claim of 4 strips (512
+# rows), over three claims (the slots' parities reused), under, at and
+# over a chunk (16 steps), one row or column;
+# its whole rings (m, n, entries, column block or None) with m under the
+# entries, n not a multiple of the block, rows a strip and one, and bands
+# of more than a claim's strips.
 RING_CHARS = 600_000
 RING_WAYS = (1, 2, 4)
 RING_TILES = [(1, 1), (5, 17), (127, 40), (128, 128), (129, 300), (300, 15), (513, 1000),
-              (1000, 33)]
-RING_WHOLE = [(3, 200, 4, None), (700, 513, 4, 300), (257, 1000, 3, 128), (129, 77, 2, 16)]
+              (1000, 33), (127, 16), (128, 17), (129, 15), (511, 17), (512, 16), (1025, 15),
+              (2100, 40)]
+RING_WHOLE = [(3, 200, 4, None), (700, 513, 4, 300), (257, 1000, 3, 128), (129, 77, 2, 16),
+              (2500, 300, 2, 128)]
 
 # The card's peak rates for the bounds (H100 SXM data sheet, at 700 W). 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (fused
 # multiply-add) x 1.98 GHz; int32 has 64 lanes an SM a clock and no fused

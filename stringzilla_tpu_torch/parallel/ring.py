@@ -63,7 +63,8 @@ KERNEL_LAUNCHES = {"ring_tile": 0}
 
 # csrc/ring.cu's geometry, as its sz_ring_geometry reports it (checked
 # before the first launch): rows a lane (a strip is a warp of 32 of them a
-# lane), warps a CTA, steps a strip reads from the strip above at once.
+# lane), warps a CTA (the consecutive strips it claims at once), steps a
+# strip takes from the strip above at once.
 GEOMETRY = (4, 4, 16)
 RING_ROWS, RING_WARPS, RING_CHUNK = GEOMETRY
 # The most CTAs an SM a launch takes, as ops.wavefront.FLAT_SHARE.
@@ -110,17 +111,28 @@ def ring_block_cols(m: int, n: int, entries: int) -> int:
 
 def tile_plan(rows: int, w: int, sms: int) -> int:
     """The CTAs of a ``ring_tile`` launch of ``rows`` x ``w`` on a card of
-    ``sms`` SMs. Strip s + 1 (a warp of ``32 RING_ROWS`` rows) starts about
-    its height and a chunk of steps after strip s, and runs w + its rows
-    steps, so about ``(w + h) / (h + RING_CHUNK) + 1`` strips are in
-    flight: the grid holds that many warps, at most the strips and at most
-    ``RING_SHARE`` CTAs of ``RING_WARPS`` warps an SM. (The launch's scratch
-    is ``csrc/ring.cu``'s ``sz_ring_scratch_bytes``.)"""
-    h = 32 * RING_ROWS
-    strips = -(-rows // h)
-    in_flight = -(-(w + h) // (h + RING_CHUNK)) + 1
-    warps = min(strips, in_flight)
-    return min(-(-warps // RING_WARPS), sms * RING_SHARE)
+    ``sms`` SMs. A CTA claims ``RING_WARPS`` strips of ``h = 32 RING_ROWS``
+    rows at once; strip s + 1 starts about its height and a chunk of steps
+    after strip s and runs ``w + h`` steps, so a claim is busy for
+    ``(W - 1)(h + chunk) + w + h`` steps and a new one starts every
+    ``W (h + chunk)``: the grid holds that many claims in flight and one
+    more, at most the claims and at most ``RING_SHARE`` CTAs an SM. Past
+    one CTA an SM it is rounded to a whole number of CTAs an SM: a strip on
+    a scheduler that holds more warps than the others slows every strip
+    after it. (The launch's scratch is ``csrc/ring.cu``'s
+    ``sz_ring_scratch_bytes``.)"""
+    return _claims_plan(rows, w, sms, *GEOMETRY, RING_SHARE)
+
+
+def _claims_plan(rows: int, w: int, sms: int, r: int, warps: int, chunk: int,
+                 share: int) -> int:
+    """``tile_plan`` for a kernel of ``r`` rows a lane, ``warps`` warps a
+    CTA and chunks of ``chunk`` steps, at most ``share`` CTAs an SM."""
+    h = 32 * r
+    claims = -(-rows // (h * warps))
+    in_flight = -(-((warps - 1) * (h + chunk) + w + h) // (warps * (h + chunk))) + 1
+    ctas = min(claims, in_flight, sms * share)
+    return ctas if ctas <= sms else round(ctas / sms) * sms
 
 
 _LIB: list = []

@@ -15,7 +15,9 @@ entries and blocks: the ring against the port's whole-pair plain DP
 ``ring_tile_reference`` on random tiles of a pair against a whole-matrix
 numpy DP. Tolerance: exact equality."""
 
+import re
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -207,19 +209,36 @@ def test_ring_inputs():
 
 def test_block_cols_and_tile_plan():
     """The default block: a multiple of 128, the whole pair on one entry,
-    a 600,000-char pair in 4 blocks on 4 entries; the plan's grid."""
+    a 600,000-char pair in 4 blocks on 4 entries; the plan's grid: the
+    claims in flight, capped, and past one CTA an SM a whole number of
+    them an SM."""
     assert ring_block_cols(600_000, 600_000, 4) == 150_016
     assert -(-600_000 // ring_block_cols(600_000, 600_000, 4)) == 4
     assert ring_block_cols(1000, 900, 1) == 1024
     for m, n, d in [(1, 1, 8), (5, 100, 8), (300, 7, 2), (10**6, 3, 3)]:
         c = ring_block_cols(m, n, d)
         assert c % 128 == 0 and c >= 128
-    assert tile_plan(128, 50, 132) == tile_plan(129, 50, 132) == 1
+    R, W, C = ring.GEOMETRY
+    h = 32 * R
+    claim = W * h  # the rows a CTA claims at once
+    assert tile_plan(claim, 50, 132) == 1
+    assert tile_plan(claim + 1, 50, 132) == 2
     assert tile_plan(600_000, 600_000, 132) == 132 * ring.RING_SHARE  # capped
-    ctas = tile_plan(150_000, 150_016, 132)
-    assert ctas == -(-(-(-(150_016 + 128) // 144) + 1) // ring.RING_WARPS)
-    ctas = tile_plan(150_000, 1_000, 132)
-    assert ctas * ring.RING_WARPS >= -(-(1000 + 128) // 144) + 1
+    # claims in flight: one starts every W (h + C) steps and is busy for
+    # (W - 1)(h + C) + w + h; past 132 rounded to a whole number of CTAs an SM
+    busy = (W - 1) * (h + C) + 150_016 + h
+    in_flight = -(-busy // (W * (h + C))) + 1
+    assert in_flight > 132
+    assert tile_plan(150_000, 150_016, 132) == 2 * 132
+    assert ring._claims_plan(150_000, 150_016, 132, R, W, C, 1) == 132
+    assert tile_plan(300_000, 300_032, 132) == 3 * 132
+    assert tile_plan(150_000, 1_000, 132) == -(-((W - 1) * (h + C) + 1000 + h) // (W * (h + C))) + 1
+    for rows, w in [(1, 1), (5_000, 3), (10 ** 6, 10 ** 6), (150_000, 40_000)]:
+        ctas = tile_plan(rows, w, 132)
+        assert 1 <= ctas <= 132 * ring.RING_SHARE
+        assert ctas <= min(-(-rows // claim), 132) or ctas % 132 == 0
+    # another geometry: strips of 256 rows, one CTA an SM in flight
+    assert ring._claims_plan(150_000, 150_016, 132, 8, 4, 16, ring.RING_SHARE) == 132
 
 
 def test_ring_tile_checks_its_tensors():
@@ -469,115 +488,140 @@ def test_ring_does_not_depend_on_entries_or_blocks(data):
 
 # -- a numpy model of csrc/ring.cu's order of work ----------------------------------
 
-def _kernel_model(a, b, top_d, top_f, left_d, left_e, best, costs: TileCosts):
-    """``ring_tile`` as ``csrc/ring.cu`` computes it, in numpy, a strip at a
-    time: the 32 lanes of a warp as rows of arrays, each holding R rows of
-    the strip; the row above through the lane before (D0, D and F when
-    affine) or, for lane 0, the top row (strip 0) or the slots of the
-    strip above, tagged with its strip number + 1, checked on every read;
-    slot 0 the column before the block; b's chars, or with classes the
-    byte offsets of the lane's class profile, as a shift register down the
-    lanes; the tile's last row, the right column and the best as the
-    kernel writes them. Returns ``(bottom_d, bottom_f, left_d, left_e,
-    best)``."""
-    R, H, C = ring.RING_ROWS, 32 * ring.RING_ROWS, ring.RING_CHUNK
-    rows, w = len(a), len(b)
+RING_CU = Path(ring.__file__).resolve().parent.parent / "csrc" / "ring.cu"
+
+
+def _ring_constant(name: str) -> int:
+    """A ``constexpr int`` of ``csrc/ring.cu``, read from its source."""
+    return int(re.search(rf"constexpr int {name} = (\d+);", RING_CU.read_text()).group(1))
+
+
+def test_geometry_mirrors_the_kernel_source():
+    """``GEOMETRY`` is ``csrc/ring.cu``'s rows a lane, warps a CTA and
+    chunk (the card checks it at first launch; this checks it here)."""
+    assert ring.GEOMETRY == tuple(_ring_constant(k) for k in
+                                  ("kRingRows", "kRingWarps", "kRingChunk"))
+
+
+def _strip_model(s, warp, claim, rows, w, a, b, left_d, left_e, top_d, top_f, costs, flags,
+                 rings, slots, out, S):
+    """Strip ``s`` of ``csrc/ring.cu`` run by warp ``warp`` of a CTA, in
+    numpy: a generator that yields, before each chunk that waits on another
+    warp of its CTA, the test of that wait on the shared ``flags``, so that
+    the CTA's warps run as the flags let them. The 32 lanes of the warp are
+    rows of arrays, each holding R rows of the strip; the row above through
+    the lane before (D0, D and F when affine) or, for lane 0, a slot a step
+    of the ring above: warp 0 stages the top row (strip 0) or the slots of
+    the claim before, tagged with its first strip's number and checked on
+    every read, a chunk at a time; warp i > 0 reads warp i - 1's ring,
+    column c in slot (c - 1) mod S (S columns a ring), once warp i - 1 has
+    published it (and publishes what it has taken, which bounds how far
+    warp i - 1 may write ahead). Warp 0 of a claim after the first waits
+    until the slots of its chunk carry its tag. Rows past the tile copy the row above. Lane 31's last row goes
+    to the warp's ring each step; the claim's last strip writes the ring
+    out a chunk at a time: slots tagged with its number + 1 by the claim's
+    parity, or the tile's bottom row. b's chars, or with classes the byte
+    offsets of the lane's class profile, move as a shift register down the
+    lanes."""
+    R, W, C = ring.GEOMETRY
+    H = 32 * R
     is_max, local = costs.objective == "max", costs.locality == "local"
     affine, classes = costs.extend is not None, costs.table is not None
     opt = np.maximum if is_max else np.minimum
     gap, ext = costs.gap, costs.extend
-    left_d, left_e = left_d.astype(np.int64), left_e.astype(np.int64)
-    bottom_d, bottom_f = np.zeros(w + 1, np.int64), np.zeros(w + 1, np.int64)
-    best = int(best[0])
+    strips = -(-rows // H)
+    r0 = s * H
+    n_rows = min(H, rows - r0)
+    last = s == strips - 1
+    hands_on = not last and warp < W - 1
     lanes = np.arange(32)
-    slots = {}  # (parity, row of slots) -> (tags, values) over columns 0..w
-    for s in range(-(-rows // H)):
-        r0 = s * H
-        n_rows = min(H, rows - r0)
-        last = r0 + H >= rows
-        o = lanes[:, None] * R + np.arange(R)[None, :]  # row offsets, (32, R)
-        inside = o < n_rows
-        i = np.minimum(r0 + o, rows - 1)
-        D1 = np.where(inside, left_d[i], 0)
-        D2 = D1.copy()
-        I = np.where(inside, left_e[i], 0) if affine else None
-        F, U = np.zeros_like(D1), np.zeros_like(D1)
-        ach = np.where(inside, np.asarray(a)[i], -1)
-        prof = None
-        if classes:  # fill_profile: byte x of word (k R/4 + g) 32 + l
-            t = costs.table.numpy()
-            cls = np.where(inside, np.clip(np.asarray(a)[i], 0, 31), 0)
-            prof = np.zeros(32 * 32 * R, np.int64)
-            for k in range(32):
-                for q in range(R):
-                    word = (k * (R // 4) + q // 4) * 32 + lanes
-                    prof[4 * word + q % 4] = t[cls[:, q], k]
+    o = lanes[:, None] * R + np.arange(R)[None, :]  # row offsets, (32, R)
+    real = o < n_rows
+    i = np.minimum(r0 + o, rows - 1)
+    D1 = np.where(real, left_d[i], 0)
+    D2 = D1.copy()
+    I = np.where(real, left_e[i], 0) if affine else None
+    F, U = np.zeros_like(D1), np.zeros_like(D1)
+    ach = np.where(real, np.asarray(a)[i], -1)
+    prof = None
+    if classes:  # fill_profile: byte x of word (k R/4 + g) 32 + l
+        t = costs.table.numpy()
+        cls = np.where(real, np.clip(np.asarray(a)[i], 0, 31), 0)
+        prof = np.zeros(32 * 32 * R, np.int64)
+        for k in range(32):
+            for q in range(R):
+                word = (k * (R // 4) + q // 4) * 32 + lanes
+                prof[4 * word + q % 4] = t[cls[:, q], k]
 
-        def b_value(j, lane):
-            ch = int(b[j]) if 0 <= j < w else -1
-            return int(np.clip(ch, 0, 31)) * H + 4 * lane if classes else ch
+    def b_value(j, lane):
+        ch = int(b[j]) if 0 <= j < w else -1
+        return int(np.clip(ch, 0, 31)) * H + 4 * lane if classes else ch
 
-        bc = np.array([[b_value(-(l * R + q), l) for q in range(R)] for l in range(32)])
-        down, up = s & 1, (s + 1) & 1
-        n_arrays = 3 if affine else 1
-        for k in range(n_arrays):
-            slots.setdefault((down, k), (np.zeros(w + 1, np.int64), np.zeros(w + 1, np.int64)))
-
-        def above(col, k):  # the row above at column col: row k of the slots
-            if s == 0:
-                return int((top_f if k == 2 else top_d)[col]) if col <= w else 0
-            if col > w:
-                return 0
-            tags, vals = slots[(up, k)]
-            assert tags[col] == s, f"strip {s} read column {col} of slots {k} untagged"
-            return int(vals[col])
-
-        kd = 1 if affine else 0
-        x2 = np.concatenate([[above(0, kd)], D1[:-1, R - 1]])
-        sends = not last
-        if sends:  # slot 0, once the strip has its first chunk
-            slots[(down, kd)][0][0], slots[(down, kd)][1][0] = s + 1, D1[31, R - 1]
-        bottom_lane = (rows - 1 - r0) // R if last else -1
-        bottom_q = (rows - 1 - r0) % R
-        steps = -(-(w + n_rows - 1) // C) * C
-        for t in range(steps):
-            x1 = np.concatenate([[above(t + 1, 0)], (U if affine else D1)[:-1, R - 1]])
+    bc = np.array([[b_value(-(l * R + q), l) for q in range(R)] for l in range(32)])
+    above, below = rings[warp], rings[warp + 1]  # [S, 3]: D0, D, F of a column
+    arrays = 3 if affine else 1
+    steps = -(-(w + H - 1) // C) * C
+    best = 0
+    for tau in range(0, steps, C):
+        hi = tau + C - H + 1  # the last column of the bottom row this chunk writes
+        if warp > 0:
+            if tau > 0:
+                flags["used"][warp - 1] = tau
+            need = min(tau + C, w)
+            yield lambda need=need: flags["done"][warp - 1] >= need
+        else:  # stage columns tau + 1 .. tau + C (and column 0 first)
+            cols = ([0] if tau == 0 else []) + list(range(tau + 1, min(tau + C, w) + 1))
+            parity = (claim + 1) & 1
+            if s > 0:  # column 0: D alone
+                yield lambda cols=cols: all(
+                    (parity, k) in slots and slots[(parity, k)][0][col] == s
+                    for col in cols for k in range(arrays) if col > 0 or k == arrays // 2)
+            for col in cols:
+                if s == 0:
+                    above[(col - 1) % S] = (top_d[col], top_d[col], top_f[col])
+                    continue
+                got = [slots[(parity, k)][1][col] for k in range(arrays)]
+                above[(col - 1) % S] = got * 3 if not affine else got
+        if hands_on:
+            yield lambda hi=hi: flags["used"][warp] >= hi - S
+        if tau == 0:
+            x2 = np.concatenate([[above[S - 1][1]], D1[:-1, R - 1]])
+        for u in range(C):
+            t = tau + u
+            ab = above[t % S]
+            x1 = np.concatenate([[ab[0] if affine else ab[1]], (U if affine else D1)[:-1, R - 1]])
             xd, y1 = x1, None
             if affine:
-                xd = np.concatenate([[above(t + 1, 1)], D1[:-1, R - 1]])
-                y1 = np.concatenate([[above(t + 1, 2)], F[:-1, R - 1]])
+                xd = np.concatenate([[ab[1]], D1[:-1, R - 1]])
+                y1 = np.concatenate([[ab[2]], F[:-1, R - 1]])
             for q in range(R - 1, -1, -1):
                 left = D1[:, q].copy()
                 diag = D2[:, q - 1] if q > 0 else x2
                 if classes:
-                    byte = prof[bc[:, q] + (q // 4) * 128 + q % 4]
-                    sub = byte
+                    sub = prof[bc[:, q] + (q // 4) * 128 + q % 4]
                 else:
                     sub = np.where(ach[:, q] == bc[:, q], costs.match, costs.mismatch)
-                live = inside[:, q] & (t - o[:, q] >= 0) & (t - o[:, q] < w)
+                live = real[:, q] & (t - o[:, q] >= 0) & (t - o[:, q] < w)
                 if affine:
                     upper = U[:, q - 1] if q > 0 else x1
                     up_f = F[:, q - 1] if q > 0 else y1
+                    up_d = D1[:, q - 1] if q > 0 else xd
                     i_new = opt(left + gap, I[:, q] + ext)
                     f_new = opt(upper + gap, up_f + ext)
                     d0 = opt(diag + sub, i_new)
                     d0 = opt(d0, 0) if local else d0
                     v = opt(d0, f_new)
+                    v = np.where(live, v, np.where(real[:, q], left, up_d))
                     I[:, q] = np.where(live, i_new, I[:, q])
-                    F[:, q] = np.where(live, f_new, F[:, q])
-                    U[:, q] = np.where(live, d0, U[:, q])
+                    F[:, q] = np.where(live, f_new, np.where(real[:, q], F[:, q], up_f))
+                    U[:, q] = np.where(live, d0, np.where(real[:, q], U[:, q], upper))
                 else:
                     upper = D1[:, q - 1] if q > 0 else x1
                     v = opt(opt(left, upper) + gap, diag + sub)
                     v = opt(v, 0) if local else v
-                v = np.where(live, v, left)
+                    v = np.where(live, v, np.where(real[:, q], left, upper))
                 if local and is_max and live.any():
                     best = max(best, int(v[live].max()))
-                if 0 <= bottom_lane and q == bottom_q and live[bottom_lane]:
-                    col = t - o[bottom_lane, q] + 1
-                    bottom_d[col] = v[bottom_lane]
-                    if affine:
-                        bottom_f[col] = F[bottom_lane, q]
                 D2[:, q] = left
                 D1[:, q] = v
             x2 = xd
@@ -585,29 +629,93 @@ def _kernel_model(a, b, top_d, top_f, left_d, left_e, best, costs: TileCosts):
             shifted = bc[:-1, R - 1] + (4 if classes else 0)
             bc[:, 1:] = bc[:, :-1].copy()
             bc[:, 0] = np.concatenate([[b_in], shifted])
-            col = t - (H - 1) + 1  # the bottom row's column this step
-            if sends and 1 <= col <= w:
-                values = (U[31, R - 1], D1[31, R - 1], F[31, R - 1]) if affine else (D1[31, R - 1],)
-                for k, value in enumerate(values):
-                    slots[(down, k)][0][col], slots[(down, k)][1][col] = s + 1, value
-        for q in range(R):
-            for lane in range(32):
-                if inside[lane, q]:
-                    left_d[r0 + o[lane, q]] = D1[lane, q]
-                    if affine:
-                        left_e[r0 + o[lane, q]] = I[lane, q]
-    return bottom_d, bottom_f, left_d, left_e, best
+            below[(t - H + 1) % S] = (U[31, R - 1], D1[31, R - 1], F[31, R - 1])
+        if hands_on:
+            flags["done"][warp] = hi
+        else:  # the chunk's columns out
+            for col in range(max(hi - C + 1, 0), min(hi, w) + 1):
+                value = below[(col - 1) % S]
+                if not last:
+                    for k in range(arrays):
+                        slot = slots.setdefault((claim & 1, k), (np.zeros(w + 1, np.int64),
+                                                                 np.zeros(w + 1, np.int64)))
+                        slot[0][col], slot[1][col] = s + 1, value[k if affine else 1]
+                elif col > 0:
+                    out["bottom_d"][col], out["bottom_f"][col] = value[1], value[2]
+    for q in range(R):
+        for lane in range(32):
+            if real[lane, q]:
+                left_d[r0 + o[lane, q]] = D1[lane, q]
+                if affine:
+                    left_e[r0 + o[lane, q]] = I[lane, q]
+    out["best"] = max(out["best"], best)  # atomicMax
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (130, 20), (300, 47)])
-@pytest.mark.parametrize("config", range(16))
-def test_kernel_model_matches_tile_reference(config, shape):
-    """The model of ``csrc/ring.cu`` (strips of 128 rows, lanes of 4,
-    tagged slots, slot 0, the profile) against ``ring_tile_reference`` on
-    random frontiers, at one row, one strip and a bit, and three strips
-    with a ragged last lane: a change to the kernel's order of work
-    changes the model with it."""
-    rows, w = shape
+def _kernel_model(a, b, top_d, top_f, left_d, left_e, best, costs: TileCosts, span=None,
+                  ctas=2, greedy=False):
+    """``ring_tile`` as ``csrc/ring.cu`` computes it, in numpy, on a grid of
+    ``ctas`` CTAs that take the claims of W strips in order, each the next
+    one once its claim is done (a claim waits only on the slots of the one
+    before). The warps of the running claims run as their waits let them
+    (``_strip_model``): each a chunk a turn, or with ``greedy`` each until
+    it waits. A CTA keeps its rings of ``span`` columns (``kRingSpan`` of
+    ``csrc/ring.cu`` unless given) from one claim to the next. Returns
+    ``(bottom_d, bottom_f, left_d, left_e, best)``."""
+    R, W, C = ring.GEOMETRY
+    H, S = 32 * R, span or _ring_constant("kRingSpan")
+    rows, w = len(a), len(b)
+    left_d, left_e = left_d.astype(np.int64), left_e.astype(np.int64)
+    out = {"bottom_d": np.zeros(w + 1, np.int64), "bottom_f": np.zeros(w + 1, np.int64),
+           "best": int(best[0])}
+    slots = {}  # (parity, row of slots) -> (tags, values) over columns 0..w
+    strips = -(-rows // H)
+    claims = -(-strips // W)
+    rings = [[np.zeros((S, 3), np.int64) for _ in range(W + 1)] for _ in range(ctas)]
+    running = {}  # CTA -> {warp: [strip generator, its wait]}
+    taken = 0
+    while True:
+        for cta in range(ctas):
+            if cta not in running and taken < claims:
+                flags = {"done": [-(2 ** 31)] * W, "used": [-1] * W}
+                running[cta] = {k: [_strip_model(taken * W + k, k, taken, rows, w, a, b, left_d,
+                                                 left_e, top_d, top_f, costs, flags, rings[cta],
+                                                 slots, out, S), None]
+                                for k in range(W) if taken * W + k < strips}
+                taken += 1
+        if not running:
+            break
+        moved = False
+        for cta, warps in list(running.items()):
+            for k in list(warps):
+                gen, wait = warps[k]
+                while wait is None or wait():
+                    moved = True
+                    try:
+                        wait = warps[k][1] = next(gen)
+                    except StopIteration:
+                        del warps[k]
+                        break
+                    if not greedy:
+                        break
+            if not warps:
+                del running[cta]
+        assert moved, f"claims {taken - len(running)}..{taken - 1}: every warp waits"
+    return out["bottom_d"], out["bottom_f"], left_d, left_e, out["best"]
+
+
+def _model_shapes():
+    """(rows, w): one row; a strip (H rows) less one, whole and plus one at
+    w under, at and over a chunk; a CTA's claim of W strips and one more; a
+    ragged last lane."""
+    R, W, C = ring.GEOMETRY
+    H = 32 * R
+    return [(1, 1), (H - 1, C - 1), (H, C), (H + 1, C + 1), (W * H + 1, C), (H + 44, 47)]
+
+
+def _model_against_reference(config, rows, w, **model):
+    """The kernel model (``_kernel_model`` with ``model``) against
+    ``ring_tile_reference`` on a random ``rows`` x ``w`` tile of
+    ``config``, all four outputs and the best cell exact."""
     rng = np.random.default_rng(1000 + 7 * config + rows)
     is_max, local, affine, classes = config & 8, config & 4, config & 2, config & 1
     table = None
@@ -623,7 +731,7 @@ def test_kernel_model_matches_tile_reference(config, shape):
             t(np.zeros(w + 1)), t(np.zeros(w + 1)), t(rng.integers(-99, 99, rows)),
             t(rng.integers(-99, 99, rows)), t([7])]
     got = _kernel_model(*(x.numpy() for x in args[:4]), args[6].numpy(), args[7].numpy(),
-                        args[8].numpy(), costs)
+                        args[8].numpy(), costs, **model)
     ring_tile_reference(*args, costs)
     np.testing.assert_array_equal(got[0][1:], args[4][1:].numpy())
     np.testing.assert_array_equal(got[2], args[6].numpy())
@@ -631,3 +739,33 @@ def test_kernel_model_matches_tile_reference(config, shape):
         np.testing.assert_array_equal(got[1][1:], args[5][1:].numpy())
         np.testing.assert_array_equal(got[3], args[7].numpy())
     assert got[4] == int(args[8][0])
+
+
+@pytest.mark.parametrize("shape", _model_shapes())
+@pytest.mark.parametrize("config", range(16))
+def test_kernel_model_matches_tile_reference(config, shape):
+    """The model of ``csrc/ring.cu`` (strips of 32 R rows, lanes of R, a
+    CTA's warps handing on through rings in shared memory under their
+    flags, tagged slots written a chunk at a time between claims, slot 0,
+    rows past the tile copying the row above, the profile) against
+    ``ring_tile_reference`` on random frontiers, on two CTAs whose claims
+    overlap: a change to the kernel's order of work changes the model with
+    it."""
+    _model_against_reference(config, *shape)
+
+
+@pytest.mark.parametrize("span,greedy", [(None, True), (2 * ring.RING_CHUNK, False)])
+@pytest.mark.parametrize("config", [0, 3, 9, 14])
+def test_kernel_model_reuses_rings_and_slots(config, span, greedy):
+    """A tile of four claims (each parity of slots written twice, while the
+    next claim still reads the other) and more columns than a ring and a
+    chunk, so that every ring wraps and its writer waits on its reader:
+    under the kernel's ring of ``kRingSpan`` columns with each warp run
+    until it waits, and under the smallest ring (two chunks) with the
+    warps a chunk a turn. Three CTAs take the claims, so that a CTA takes
+    a claim beside the two before it, its rings holding the old claim's
+    columns."""
+    R, W, C = ring.GEOMETRY
+    S = span or _ring_constant("kRingSpan")
+    _model_against_reference(config, 3 * W * 32 * R + 1, S + C + 1, span=span, ctas=3,
+                             greedy=greedy)

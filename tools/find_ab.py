@@ -56,7 +56,6 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -64,6 +63,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "tools"))
 import chip_smoke  # noqa: E402
+import cuda_tools  # noqa: E402
 
 OUT = os.path.join(HERE, "build", "find_ab")
 MODES = {"first": 0, "last": 1, "count": 2}
@@ -76,25 +76,9 @@ GEOMETRIES = [(16384, 4, 2), (16384, 6, 2), (24576, 4, 2), (32768, 2, 2), (32768
 SOURCE = os.path.join(HERE, "stringzilla_tpu_torch", "csrc", "find.cu")
 
 
-def _nvcc() -> str:
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
-def _build(src: str, tag: str) -> str:
-    """``src`` alone built into build/find_ab/<tag>.so."""
-    os.makedirs(OUT, exist_ok=True)
-    so = os.path.join(OUT, f"{tag}.so")
-    subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-Xcompiler", "-fPIC", "-shared", "-o", so, src],
-                   check=True, timeout=600, capture_output=True, text=True)
-    return so
-
-
 def _builds(jobs: dict) -> dict:
-    """{tag: src} built together; {tag: library}."""
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        paths = dict(zip(jobs, pool.map(lambda j: _build(jobs[j], j), jobs)))
-    return {tag: ctypes.CDLL(path) for tag, path in paths.items()}
+    """{tag: src} built together into build/find_ab/; {tag: library}."""
+    return cuda_tools.builds(jobs, OUT)
 
 
 def _variant(tag: str, subs: dict) -> str:
@@ -464,20 +448,10 @@ def _sass_function(sass: str, name: str) -> list:
 
 
 def _sass() -> int:
-    import utf8_ab
-
-    os.makedirs(OUT, exist_ok=True)
-    cubin = os.path.join(OUT, "find_probe.cubin")
-    subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-cubin", "-o", cubin, os.path.join(HERE, "tools", "find_probe.cu")],
-                   check=True, timeout=600)
-    sass = utf8_ab._sass(cubin)
-    kernel = os.path.join(OUT, "find.cubin")
-    subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-cubin", "-o", kernel,
-                    os.path.join(HERE, "stringzilla_tpu_torch", "csrc", "find.cu")],
-                   check=True, timeout=600)
-    kernel_sass = utf8_ab._sass(kernel)
+    cubins = cuda_tools.builds({"find_probe": os.path.join(HERE, "tools", "find_probe.cu"),
+                                "find": SOURCE}, OUT, cubin=True)
+    sass = cuda_tools.sass(cubins["find_probe"])
+    kernel_sass = cuda_tools.sass(cubins["find"])
     for k in range(4):  # for reading: the probe's and the kernel's SASS
         for name, text in ((f"find_probe_{k}", sass), (f"find_search_{k}", kernel_sass)):
             code = _sass_function(text, f"{name[:-2]}ILi{k}E" + ("Lb0E" if "search" in name
@@ -489,12 +463,12 @@ def _sass() -> int:
     result = {}
     for k in range(4):
         code = _sass_function(sass, f"find_probeILi{k}E")
-        blocks = utf8_ab._loop_blocks(code)
+        blocks = cuda_tools.loop_blocks(code)
         ins = [i for _, b, _ in blocks for i in b]
         per_word = len(ins) / WORDS_PER_THREAD
         ops_ms = per_word / 4 * n / chip_smoke.INT32_OPS_PER_S * 1e3
         result[f"filter<{k}>"] = {"per_word": per_word, "per_byte": per_word / 4,
-                                  "opcodes": utf8_ab._histogram(ins),
+                                  "opcodes": cuda_tools.histogram(ins),
                                   "int32_bound_256MiB_ms": ops_ms, "bytes_bound_256MiB_ms": bytes_ms}
         print(f"[find sass] filter<{k}> ({'a byteset' if k == 0 else f'{k} offsets'}): "
               f"{per_word:.2f} instructions a word, {per_word / 4:.2f} a byte; a 256 MiB scan at "

@@ -71,6 +71,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "tools"))
 import chip_smoke  # noqa: E402
+import cuda_tools  # noqa: E402
 
 OUT = os.path.join(HERE, "build", "hash_ab")
 SOURCE = os.path.join(HERE, "stringzilla_tpu_torch", "csrc", "hash.cu")
@@ -84,32 +85,6 @@ SHORT = ("words", "tokens", "skipped 2^20")
 GEOMETRIES = [(2, 1024, 1), (4, 1024, 1), (6, 1024, 1), (8, 1024, 1), (4, 768, 1), (4, 512, 1)]
 
 
-def _nvcc() -> str:
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
-def _build(src: str, tag: str, cubin: bool = False) -> str:
-    """``src`` alone built into build/hash_ab/<tag>.so (or .cubin)."""
-    os.makedirs(OUT, exist_ok=True)
-    path = os.path.join(OUT, f"{tag}.{'cubin' if cubin else 'so'}")
-    kind = ["-cubin"] if cubin else ["-Xcompiler", "-fPIC", "-shared"]
-    proc = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                           "-O3", "-Xptxas", "-v", *kind, "-o", path, src],
-                          timeout=600, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    with open(path + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    return path
-
-
-def _builds(jobs: dict) -> dict:
-    """{tag: src} built together; {tag: bound library}."""
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        paths = dict(zip(jobs, pool.map(lambda j: _build(jobs[j], j), jobs)))
-    return {tag: _bind(ctypes.CDLL(path)) for tag, path in paths.items()}
-
-
 def _bind(lib):
     p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     lib.sz_hash_short.argtypes = [p, ll, p, p, ll, u64, p, i, p]
@@ -117,6 +92,11 @@ def _bind(lib):
         getattr(lib, name).argtypes = [p, ll, p, p, ll, u64, ll, p, i, i, p]
     lib.sz_fill_random.argtypes = [u64, ll, p, i, p]
     return lib
+
+
+def _builds(jobs: dict) -> dict:
+    """{tag: src} built together into build/hash_ab/; {tag: bound library}."""
+    return cuda_tools.builds(jobs, OUT, _bind)
 
 
 def _read(path: str) -> str:
@@ -519,8 +499,8 @@ def _time_libs(texts: dict, label: str) -> int:
 
 
 def _registers(tag: str) -> str:
-    """ptxas' line on hash_short's registers and spills in <tag>.so.log."""
-    lines = _read(os.path.join(OUT, f"{tag}.so.log")).splitlines()
+    """ptxas' line on hash_short's registers and spills in <tag>.log."""
+    lines = _read(os.path.join(OUT, f"{tag}.log")).splitlines()
     for k, line in enumerate(lines):
         if "Compiling entry" in line and "hash_short" in line:
             return " ".join(x.strip() for x in lines[k + 1: k + 4] if "Used" in x or "spill" in x)
@@ -529,17 +509,16 @@ def _registers(tag: str) -> str:
 
 def _sass() -> int:
     import torch
-    import utf8_ab
-
     card = _card()
     print(card, flush=True)
     sources = {}
     for name, text in _designs().items():
         sources[name] = _write(f"sass_{name}", text + f'\n#include "{PROBE}"\n')
     with ThreadPoolExecutor(2 * len(sources)) as pool:
-        cubins = dict(zip(sources, pool.map(lambda n: _build(sources[n], f"sass_{n}", True),
+        cubins = dict(zip(sources, pool.map(lambda n: cuda_tools.build(sources[n], OUT, f"sass_{n}", True),
                                             sources)))
-        libs = dict(zip(sources, pool.map(lambda n: _build(sources[n], f"sass_{n}"), sources)))
+        libs = dict(zip(sources, pool.map(lambda n: cuda_tools.build(sources[n], OUT, f"so_{n}"),
+                                          sources)))
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
@@ -552,16 +531,16 @@ def _sass() -> int:
     out = torch.empty(threads * blocks, dtype=torch.int32, device=dev)
     result = {}
     for name in sources:
-        sass = utf8_ab._sass(cubins[name])
+        sass = cuda_tools.sass(cubins[name])
         with open(os.path.join(OUT, f"sass_{name}_hash_short.txt"), "w") as f:
-            f.writelines(f"{a:06x} {i}\n" for a, i in utf8_ab._function(sass, "hash_short"))
+            f.writelines(f"{a:06x} {i}\n" for a, i in cuda_tools.function(sass, "hash_short"))
         for kernel in ("hash_probe_short", "hash_probe_tables"):
             if kernel == "hash_probe_tables" and name != "kept":
                 continue
-            code = utf8_ab._function(sass, kernel)
+            code = cuda_tools.function(sass, kernel)
             with open(os.path.join(OUT, f"sass_{name}_{kernel}.txt"), "w") as f:
                 f.writelines(f"{a:06x} {i}\n" for a, i in code)
-            blocks_ = utf8_ab._loop_blocks(code)
+            blocks_ = cuda_tools.loop_blocks(code)
             ins = [i for _, b, _ in blocks_ for i in b]
             lib = ctypes.CDLL(libs[name])
             fn = getattr(lib, "hash_probe_launch")
@@ -579,7 +558,7 @@ def _sass() -> int:
             warp_aes = blocks * threads // 32 * trips * 8
             per_sm_clock = warp_aes / sms / (float(t) * 1e-3 * mhz * 1e6)
             key = name if kernel == "hash_probe_short" else "T[4][256] (hash_long, fill_random)"
-            result[key] = {"per_aesenc": len(ins) / 8, "opcodes": utf8_ab._histogram(ins),
+            result[key] = {"per_aesenc": len(ins) / 8, "opcodes": cuda_tools.histogram(ins),
                            "ms": [float(t), t.lo, t.hi],
                            "warp_aesenc_per_sm_clock": per_sm_clock}
             print(f"[hash sass] {key}: {len(ins) / 8:.2f} SASS instructions an AESENC (a loop of "

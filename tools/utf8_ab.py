@@ -41,7 +41,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "tools"))
 import chip_smoke  # noqa: E402
+import cuda_tools  # noqa: E402
+from cuda_tools import function, histogram, loop_blocks, opcode, shortest  # noqa: E402
 
 
 def _buffers():
@@ -107,94 +110,6 @@ def _time_tree(root: str) -> dict:
             "ms": {k: [float(t), t.lo, t.hi] for k, t in times.items()}}
 
 
-def _sass(path: str) -> str:
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    return subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", path],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-
-
-def _function(sass: str, name: str) -> list:
-    """(address, instruction) of the SASS function whose name holds ``name``."""
-    at = [m.start() for m in re.finditer(r"Function : (\S+)", sass)
-          if name in m.group(1) and "probe" not in m.group(1) or m.group(1) == name]
-    if not at:
-        raise RuntimeError(f"no function {name} in the SASS")
-    body = sass[at[0]:]
-    end = body.find("Function :", 10)
-    body = body if end < 0 else body[:end]
-    return [(int(a, 16), ins.strip()) for a, ins in
-            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-
-
-def _opcode(ins: str) -> str:
-    return ins.split()[1] if ins.startswith("@") else ins.split()[0]
-
-
-def _loop_blocks(code: list):
-    """The basic blocks of the loop of the longest predicated backward branch
-    (an unpredicated one jumps back from code laid out after the function's
-    end, such as a vote's divergence path): a list of (first address,
-    instructions, successors), successors within the loop."""
-    loops = [(int(m.group(1), 16), at) for at, ins in code
-             for m in [re.search(r"BRA (0x[0-9a-f]+)", ins)]
-             if m and int(m.group(1), 16) < at and ins.startswith("@")]
-    if not loops:
-        raise RuntimeError("no loop in the SASS")
-    first, last = max(loops, key=lambda fl: fl[1] - fl[0])
-    body = [(a, i) for a, i in code if first <= a <= last and _opcode(i) != "NOP"]
-    targets = {int(m.group(1), 16) for _, i in body for m in [re.search(r"BRA (0x[0-9a-f]+)", i)]
-               if m}
-    blocks, cur = [], []
-    for a, i in body:
-        if cur and a in targets:
-            blocks.append(cur)
-            cur = []
-        cur.append((a, i))
-        if _opcode(i).split(".")[0] in ("BRA", "EXIT", "RET", "BRX", "JMP"):
-            blocks.append(cur)
-            cur = []
-    if cur:
-        blocks.append(cur)
-    starts = [b[0][0] for b in blocks]
-    out = []
-    for k, b in enumerate(blocks):
-        a, i = b[-1]
-        succ = []
-        m = re.search(r"BRA (0x[0-9a-f]+)", i)
-        if m and first < int(m.group(1), 16) <= last and int(m.group(1), 16) in starts:
-            succ.append(starts.index(int(m.group(1), 16)))
-        # an unpredicated BRA, EXIT or RET never falls through; BRA.DIV
-        # (taken only when the warp has diverged) and predicated ones may
-        if not (_opcode(i) in ("BRA", "EXIT", "RET") and not i.startswith("@")) \
-                and k + 1 < len(blocks):
-            succ.append(k + 1)
-        out.append((b[0][0], [x for _, x in b], [s for s in succ if s > k]))
-    return out
-
-
-def _shortest(blocks) -> list:
-    """The instructions on the shortest path from the loop's first block to
-    its last (the backward branch); None if no forward path reaches it."""
-    best = [None] * len(blocks)
-    best[0] = list(blocks[0][1])
-    for k, (_, ins, succ) in enumerate(blocks):
-        if best[k] is None:
-            continue
-        for s in succ:
-            path = best[k] + blocks[s][1]
-            if best[s] is None or len(path) < len(best[s]):
-                best[s] = path
-    return best[-1]
-
-
-def _histogram(ins: list) -> dict:
-    hist = {}
-    for i in ins:
-        op = _opcode(i).split(".")[0]
-        hist[op] = hist.get(op, 0) + 1
-    return dict(sorted(hist.items(), key=lambda kv: -kv[1]))
-
-
 def _probe(other: str | None) -> dict:
     """SASS instruction counts of each tree's kernel loop and this tree's
     step branches."""
@@ -212,32 +127,27 @@ def _probe(other: str | None) -> dict:
                                  "print(cuda_build._build())", root],
                                 capture_output=True, text=True, check=True, timeout=900
                                 ).stdout.strip().splitlines()[-1]
-        code = _function(_sass(so), "utf8_validate_count")
+        code = function(cuda_tools.sass(so), "utf8_validate_count")
         _dump(f"utf8_sass_{label}.txt", code)
-        blocks = _loop_blocks(code)
+        blocks = loop_blocks(code)
         ins = [i for _, b, _ in blocks for i in b]
         single = [i for _, b, _ in blocks for i in b
-                  if not any(re.match(r"LDG\.E\.(U8|S8)", _opcode(x)) for x in b)]
+                  if not any(re.match(r"LDG\.E\.(U8|S8)", opcode(x)) for x in b)]
         result[label] = {"loop_instructions": len(ins),
                          "loop_without_byte_loads": len(single),
                          "per_word_one_path": len(single) / 4,
-                         "opcodes_without_byte_loads": _histogram(single),
-                         "vset4_like": sum(_opcode(i).startswith(("VSET", "VABSDIFF", "VMNMX"))
+                         "opcodes_without_byte_loads": histogram(single),
+                         "vset4_like": sum(opcode(i).startswith(("VSET", "VABSDIFF", "VMNMX"))
                                            for i in ins)}
     # this tree's step by branch
-    out_dir = os.path.join(HERE, "build", "utf8_probe")
-    os.makedirs(out_dir, exist_ok=True)
-    cubin = os.path.join(out_dir, "utf8_probe.cubin")
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-cubin", "-o", cubin, os.path.join(HERE, "tools", "utf8_probe.cu")],
-                   check=True, timeout=600)
-    sass = _sass(cubin)
+    cubin = cuda_tools.build(os.path.join(HERE, "tools", "utf8_probe.cu"),
+                             os.path.join(HERE, "build", "utf8_probe"), "utf8_probe", cubin=True)
+    sass = cuda_tools.sass(cubin)
     paths = {}
     for k in ("load", "lite", "four", "row"):
-        code = _function(sass, f"utf8_probe_{k}")
+        code = function(sass, f"utf8_probe_{k}")
         _dump(f"utf8_sass_probe_{k}.txt", code)
-        paths[k] = _shortest(_loop_blocks(code))
+        paths[k] = shortest(loop_blocks(code))
     if paths["load"] is None:
         raise RuntimeError("no path through utf8_probe_load's loop")
     base = len(paths["load"])
@@ -247,7 +157,7 @@ def _probe(other: str | None) -> dict:
             result["this_step"][k] = "no forward path through the loop (SASS in build/utf8_probe/)"
             continue
         result["this_step"][k] = {"per_word": (len(paths[k]) - base) / 4,
-                                  "opcodes": _histogram(paths[k])}
+                                  "opcodes": histogram(paths[k])}
     return result
 
 
